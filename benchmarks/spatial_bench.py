@@ -1,53 +1,60 @@
-"""Single-chip throughput of the spatially-sharded engine under a trivial
-(frame=1, rows=1) mesh — the VERDICT r2 item-9 acceptance number (>= 500
-fps at 1080p with the per-shard Pallas kernels; the XLA spatial path
-measured 228 fps in r2)."""
+"""Single-card throughput of the spatially-sharded engine under a trivial
+(frame=1, rows=1) mesh, beside the streaming engine on the same frames:
+the cost of the shard_map formulation itself (full complex FFTs, no
+collectives).  Exits 1 when JAX finds no GPU."""
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/pbmm_jax_cache")
-
-import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
-sys.path.insert(0, ".")
-
-from jax.sharding import Mesh
-
-from pbmm_tpu.config import MagnifyConfig
-from pbmm_tpu.parallel.spatial import _spatial_pallas_ok, magnify_video_spatial
-from pbmm_tpu.core.window import geometry_for
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    print(f"devices: {jax.devices()}", file=sys.stderr)
+    import jax
+    from jax.sharding import Mesh
+
+    from pbmm_tpu.config import MagnifyConfig
+    from pbmm_tpu.engine.video import magnify_video
+    from pbmm_tpu.parallel.spatial import magnify_video_spatial
+    from pbmm_tpu.utils.cache import enable_compile_cache
+    from pbmm_tpu.utils.device import (
+        describe,
+        gpu_name_and_power_limit,
+        require_gpu,
+    )
+
+    try:
+        require_gpu(jax.devices())
+    except RuntimeError as e:
+        print(f"spatial_bench: {e}", file=sys.stderr)
+        return 1
+    enable_compile_cache()
+    print(f"device: {describe(jax.devices())}", file=sys.stderr)
+    print(f"card: {gpu_name_and_power_limit()}", file=sys.stderr)
     h, w, t, reps = 1080, 1920, 16, 4
     rng = np.random.default_rng(0)
     base = rng.random((h, w, 3)).astype(np.float32)
-    frames = np.stack([np.roll(base, i, axis=1) for i in range(t)])
+    fd = jax.device_put(np.stack([np.roll(base, i, axis=1) for i in range(t)]))
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
                 ("frame", "rows"))
+    cfg = MagnifyConfig()
 
-    for name, cfg in [
-        ("xla", MagnifyConfig(use_rfft=False)),
-        ("pallas", MagnifyConfig(fft_backend="pallas", use_rfft=False)),
+    for name, fn in [
+        ("spatial (1,1) mesh", lambda: magnify_video_spatial(fd, cfg, mesh)),
+        ("streaming engine", lambda: magnify_video(fd, cfg)[0]),
     ]:
-        if name == "pallas":
-            assert _spatial_pallas_ok(cfg, geometry_for(h, w), 1)
-        fd = jax.device_put(frames)
-        out = magnify_video_spatial(fd, cfg, mesh)
-        np.asarray(out[0, 0, 0, 0])
+        jax.block_until_ready(fn())
         t0 = time.perf_counter()
         for _ in range(reps):
-            out = magnify_video_spatial(fd, cfg, mesh)
-        np.asarray(out[0, 0, 0, 0])
+            out = fn()
+        jax.block_until_ready(out)
         fps = t * reps / (time.perf_counter() - t0)
-        print(f"spatial[{name}] 1080p single-chip (1,1) mesh: {fps:.2f} fps")
+        print(f"{name} 1080p single-card: {fps:.2f} fps")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

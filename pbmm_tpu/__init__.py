@@ -1,9 +1,10 @@
-"""pbmm_tpu — TPU-native phase-based motion manipulation framework.
+"""pbmm_tpu — phase-based motion manipulation framework.
 
-A brand-new JAX/XLA/Pallas implementation of Eulerian phase-based motion
-magnification with the capabilities of the Unity/HLSL reference
-`KenanGokdenizAcet/phase-based-motion-manipulation` (see SURVEY.md), designed
-TPU-first:
+A JAX/XLA implementation of Eulerian phase-based motion magnification with
+the capabilities of the Unity/HLSL reference
+`KenanGokdenizAcet/phase-based-motion-manipulation` (see SURVEY.md), built
+as array programs that XLA compiles for the accelerator (cuFFT for the
+transforms on an NVIDIA GPU):
 
 - the whole per-frame pipeline is one pure, jittable array program
   (`engine.pipeline.magnify_frame_pair`);
@@ -12,13 +13,12 @@ TPU-first:
   algebraically fused — see `phase.amplify`);
 - video streaming is a `lax.scan` carrying the previous frame's spectrum and
   temporal-filter state (`engine.video`);
-- multi-chip scaling uses `jax.sharding` meshes with a 1-frame halo exchange
-  over the frame-shard axis (`parallel`);
-- hot elementwise passes have Pallas TPU kernels (`phase.pallas_kernels`).
+- multi-device scaling uses `jax.sharding` meshes with a 1-frame halo
+  exchange over the frame-shard axis (`parallel`).
 
 Layer map (mirrors SURVEY.md §7.1):
     core/      color transforms, pad/window/crop/blur, complex helpers
-    spectral/  centered 2D FFT/IFFT (XLA backend; Pallas-ready interface)
+    spectral/  centered 2D FFT/IFFT (jnp.fft; matmul-factored alternative)
     pyramid/   frequency-domain radial (+ optional steerable) filter banks
     phase/     phase-delta amplification (pyramid + standard modes), temporal
     engine/    frame-pair and streaming-video drivers, pipeline state

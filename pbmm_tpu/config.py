@@ -1,6 +1,6 @@
 """Frozen, hashable configuration for the magnification pipeline.
 
-This is the TPU-native analog of the reference's Unity-inspector parameter
+This is the analog of the reference's Unity-inspector parameter
 surface (`Assets/Scripts/MotionMagnificationProcessor.cs:7-47`): a frozen
 dataclass passed as a *static* jit argument, so any change retraces cleanly —
 the analog of `OnValidate` regenerating the filter masks
@@ -108,7 +108,7 @@ class MagnifyConfig:
     min_frequency: float = 0.05
     max_frequency: float = 0.45
     orientations: int = 0  # 0 = radial-only (reference); K>0 adds K angular
-    #                        steerable sectors per mid band (TPU extension)
+    #                        steerable sectors per mid band (extension)
 
     # --- standard mode spatial bandpass of the phase delta ---
     apply_bandpass: bool = True
@@ -123,27 +123,15 @@ class MagnifyConfig:
     blur_size: float = 0.5
     pad_mode: str = "square_pow2"  # "square_pow2" (reference) | "rect_pow2"
     #   | "tight" (height to the next 128 multiple — 1080p -> 1152x2048,
-    #   0.56x the reference's pixels; four-step column kernel, r5)
+    #   0.56x the reference's pixels)
     chroma: str = "y_only"  # "y_only" (reference) | "rgb" (magnify all planes)
     output_layout: str = "interleaved"  # "interleaved" ((T, H, W, 3) f32,
-    #   the reference's texture contract) | "planar" ((T, 3, H, W) f32,
-    #   written directly by the post kernel — no channel-interleave pass)
+    #   the reference's texture contract) | "planar" ((T, 3, H, W) f32)
     #   | "planar_u8" (same, quantized to uint8 — 1/4 the output bytes;
     #   the y4m/display contract)
 
     # --- temporal filtering ---
     temporal: TemporalConfig = dataclasses.field(default_factory=TemporalConfig)
-
-    # --- engine select ---
-    engine: str = "batched"  # "batched" (scan-free chunk engine: every
-    #   frame's FFT in one batched dispatch, frame pairs streamed through
-    #   shifted index maps — no per-frame lax.scan glue) | "scan" (the
-    #   lax.scan streaming engine).  Identical math (parity-tested); the
-    #   batched engine is ~20% faster at 1080p but requires the fused
-    #   two-frame cached-spectrum path — other configs (IIR temporal,
-    #   no-cache parity mode) always run the scan engine.  Static, hashed,
-    #   checkpointed like every other field (VERDICT r3 item 5; the
-    #   PBMM_SCANFREE env var remains as an A/B override only).
 
     # --- quirk switches (defaults = reference behavior) ---
     reconstruct: str = "magnitude"  # "magnitude" | "real"
@@ -159,41 +147,15 @@ class MagnifyConfig:
     #   where the shader would.
 
     # --- backend ---
-    fft_backend: str = "xla"  # "xla" (jnp.fft) | "pallas" (fused radix-2
-    #   kernels, bitrev spectral layout — spectral/pallas_fft.py) | "mxu"
-    #   (four-step matmul-factored DFT on the systolic array, natural rfft
-    #   layout — spectral/mxu_fft.py).  All behind one interface and
-    #   benchmarked honestly (SURVEY.md §7.3).
+    fft_backend: str = "xla"  # "xla" (jnp.fft: cuFFT on the GPU) | "mxu"
+    #   (four-step matmul-factored DFT, natural rfft layout —
+    #   spectral/mxu_fft.py; off the default path, kept for comparison).
     use_rfft: bool = True  # half-spectrum (rfft2/irfft2) spectral path.
     #   Mathematically identical for real inputs: the phase modification
     #   preserves Hermitian symmetry (gates even in k, wrapped delta odd,
     #   masks/weights radial), so the full spectrum is always the Hermitian
     #   extension of the half — at ~half the FFT + phase-pass cost.  Set
     #   False for the literal full-spectrum chain.
-    use_pallas: bool = False  # fused band/phase pass as a Pallas TPU kernel
-    use_fused_spectral: bool = False  # fuse the band/phase pass into the
-    #   column-IFFT kernel and the |z| reduction into the row-IFFT kernel
-    #   (spectral/fused.py): the modified spectrum and the complex
-    #   reconstruction never round-trip HBM.  Default in `tuned_for_tpu()`
-    #   since the MXU group-matmul freed the VPU budget that made the
-    #   round-1 fused path lose; honest numbers in README.
-    use_hermitian_spectral: bool = False  # Hermitian-half kept-lane layout
-    #   for the fused spectral path (spectral/hermitian.py): the real input
-    #   makes the lane spectrum conjugate-symmetric, so only the kept 128-
-    #   lane tiles (9/16 at W=2048) flow through the column FFT, the phase
-    #   pass, and the column IFFT; the row-IFFT kernel reconstructs the
-    #   missing tiles in VMEM (conj + one MXU lane-reversal matmul).  Only
-    #   honored where the fused path runs (`fused_eligible` + pow-2 pads);
-    #   mathematically identical (the phase pass preserves the symmetry,
-    #   same argument as `use_rfft`).
-    interpret_pallas: bool = False  # Pallas interpret mode (CPU testing)
-    gm_precision: str = ""  # MXU matmul precision for the FFT group
-    #   matmuls (advisor r4: a config field is hashed and checkpointed,
-    #   unlike the env var): "" = keep the process default
-    #   (PBMM_GM_PRECISION env, default "b3": 3 one-pass bf16 dots per
-    #   real product, ~117 dB end-to-end parity), "b3", "highest"
-    #   (6-pass full-f32, ~146 dB, ~15% slower), or "default" (single
-    #   lossy bf16 pass — measurement only).
 
     def __post_init__(self):
         if self.mode not in ("pyramid", "standard"):
@@ -202,56 +164,26 @@ class MagnifyConfig:
             raise ValueError(f"unknown reconstruct: {self.reconstruct!r}")
         if self.pad_mode not in ("square_pow2", "rect_pow2", "tight"):
             raise ValueError(f"unknown pad_mode: {self.pad_mode!r}")
-        if (self.pad_mode == "tight" and self.fft_backend not in
-                ("xla", "pallas")):
+        if self.pad_mode == "tight" and self.fft_backend != "xla":
             raise ValueError(
                 "pad_mode='tight' needs a non-pow2-capable backend: "
-                "fft_backend='pallas' (four-step column kernel, batched "
-                "engine) or 'xla' (generic FFT)"
+                "fft_backend='xla'"
             )
         if self.chroma not in ("y_only", "rgb"):
             raise ValueError(f"unknown chroma: {self.chroma!r}")
         if self.output_layout not in ("interleaved", "planar", "planar_u8"):
             raise ValueError(f"unknown output_layout: {self.output_layout!r}")
-        if self.engine not in ("batched", "scan"):
-            raise ValueError(f"unknown engine: {self.engine!r}")
         if self.pyramid_levels < 1:
             raise ValueError("pyramid_levels must be >= 1")
         if self.orientations < 0:
             raise ValueError("orientations must be >= 0")
-        if self.use_pallas and self.use_rfft:
-            raise ValueError(
-                "use_pallas currently requires use_rfft=False (the Pallas "
-                "kernel tiles full-width lane-aligned spectra)"
-            )
-        if self.fft_backend not in ("xla", "pallas", "mxu"):
+        if self.fft_backend not in ("xla", "mxu"):
             raise ValueError(f"unknown fft_backend: {self.fft_backend!r}")
-        if self.fft_backend == "pallas" and self.use_rfft:
-            raise ValueError(
-                "fft_backend='pallas' requires use_rfft=False (full complex "
-                "spectrum in bit-reversed layout)"
-            )
         if self.fft_backend == "mxu" and not self.use_rfft:
             raise ValueError(
                 "fft_backend='mxu' requires use_rfft=True (four-step matmul "
                 "FFT produces the natural half-spectrum layout)"
             )
-        if self.gm_precision not in ("", "b3", "highest", "default"):
-            raise ValueError(
-                f"unknown gm_precision: {self.gm_precision!r} "
-                "(expected '', 'b3', 'highest', or 'default')"
-            )
-
-    def tuned_for_tpu(self) -> "MagnifyConfig":
-        """Fastest-known equivalent configuration for real TPU hardware:
-        the Pallas fused-stage FFT backend (radix-2 roll stages + one MXU
-        group matmul per axis) with the phase pass fused into the
-        column-IFFT kernel and |z| into the row-IFFT kernel.  Output is
-        PSNR-equivalent (>70 dB) to the default path; tests assert both."""
-        return dataclasses.replace(
-            self, fft_backend="pallas", use_rfft=False,
-            use_fused_spectral=True, use_hermitian_spectral=True,
-        )
 
     @staticmethod
     def scene_defaults() -> "MagnifyConfig":

@@ -2,9 +2,8 @@
 
 NTSC matrices as used by the reference fragment shaders
 (`Assets/Shaders/RGBToYIQ.shader:46-50`, `Assets/Shaders/YIQToRGB.shader:51-55`),
-implemented as a single einsum so XLA fuses the 3x3 contraction with the
-surrounding elementwise work (on TPU this lowers to VPU ops — a 3-wide
-contraction is far below MXU tile size, and XLA handles that choice).
+written out as scalar multiply-adds so XLA fuses the 3x3 transform with the
+surrounding elementwise work.
 
 The reference's optional per-channel YIQ gains are inert (the shader keyword
 `_YIQADJUSTMENT_ON` is never enabled and the multipliers are fixed at 1.0 —
@@ -52,10 +51,10 @@ YIQ_TO_RGB = np.array(
 def _apply_3x3(x: jnp.ndarray, m: np.ndarray, axis: int = -1) -> jnp.ndarray:
     """Explicit elementwise FMA form of a 3x3 channel transform along `axis`.
 
-    Written out (rather than einsum/dot) deliberately: a 3-wide contraction
-    on TPU would otherwise hit the MXU's bf16-input fp32-accumulate path and
-    lose ~3 decimal digits; as scalar FMAs it runs on the VPU in full fp32
-    and fuses into the surrounding pad/window arithmetic.
+    Written out (rather than einsum/dot) deliberately: a dot could be
+    lowered to a reduced-precision matrix unit path (TF32 / bf16 inputs)
+    and lose ~3 decimal digits; as scalar FMAs it stays full fp32 and fuses
+    into the surrounding pad/window arithmetic.
     """
     c0 = jnp.take(x, 0, axis=axis)
     c1 = jnp.take(x, 1, axis=axis)

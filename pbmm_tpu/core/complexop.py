@@ -22,8 +22,8 @@ def wrap_phase(x: jnp.ndarray) -> jnp.ndarray:
 
 
 def split(z: jnp.ndarray):
-    """complex -> (re, im) f32 pair.  Host transfers of complex64 are
-    unimplemented on some TPU runtimes, so public jit boundaries use pairs."""
+    """complex -> (re, im) f32 pair: public jit boundaries and checkpoints
+    carry plain float arrays."""
     return jnp.real(z), jnp.imag(z)
 
 

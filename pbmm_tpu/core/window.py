@@ -54,12 +54,10 @@ def geometry_for(in_h: int, in_w: int, pad_mode: str = "square_pow2") -> Geometr
     elif pad_mode == "rect_pow2":
         pad_h, pad_w = _next_pow2(in_h), _next_pow2(in_w)
     elif pad_mode == "tight":
-        # r5: height padded to the smallest multiple of 128 (the TPU
-        # lane/MXU quantum) — 1080p pads to 1152 = 9*128 instead of 2048,
-        # 0.5625x the pixels.  Served by the four-step mixed-radix column
-        # transform (`spectral.fused._fourstep_col`) in the Pallas path
-        # and by XLA's generic FFT otherwise; the width keeps the pow-2
-        # rule (the row kernels' Hermitian/bitrev machinery is pow-2).
+        # Height padded to the smallest multiple of 128 — 1080p pads to
+        # 1152 = 9*128 instead of 2048, 0.5625x the pixels; the FFT
+        # library takes the mixed-radix height directly.  The width keeps
+        # the pow-2 rule.
         pad_h = max(-(-in_h // 128) * 128, 128)
         pad_w = _next_pow2(in_w)
     else:
@@ -101,9 +99,8 @@ def pad_center(img: jnp.ndarray, geom: Geometry) -> jnp.ndarray:
     `MotionMagnificationProcessor.cs:365`): (..., H, W) -> (..., Hp, Wp).
 
     Channels ride in leading dims — the pipeline is channels-first
-    internally so the minor (tiled) dims are the large spatial ones; a
-    trailing size-3 channel dim can cost up to 42x HBM padding under TPU
-    (8, 128) tiling.
+    internally so the minor (contiguous) dims are the large spatial ones
+    and every plane is a dense 2D array for the FFT.
     """
     pads = [(0, 0)] * (img.ndim - 2) + [
         (geom.y0, geom.pad_h - geom.in_h - geom.y0),

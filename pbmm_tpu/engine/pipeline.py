@@ -1,6 +1,6 @@
 """The per-frame pipeline — pure, jittable, config-static.
 
-This is the TPU-native equivalent of the reference orchestrator's per-frame
+This is the equivalent of the reference orchestrator's per-frame
 sequence (`ProcessFrameWithPyramidDecomposition`,
 `MotionMagnificationProcessor.cs:145-206`, and the standard path `:208-232`),
 reduced from ~115 GPU dispatches to:
@@ -28,8 +28,6 @@ from pbmm_tpu.core.color import rgb_to_yiq, unit_float, yiq_to_rgb
 from pbmm_tpu.core.window import (
     Geometry,
     blur_then_crop,
-    crop_center,
-    gaussian_blur5,
     geometry_for,
     hann2d,
     hann2d_region,
@@ -38,9 +36,6 @@ from pbmm_tpu.core.window import (
 from pbmm_tpu.phase.amplify import (
     phase_delta,
     pyramid_phase_amplify_procedural,
-)
-from pbmm_tpu.phase.pallas_kernels import (
-    pyramid_phase_amplify_pallas_procedural,
 )
 from pbmm_tpu.phase.standard import bandpass_weight_map_jnp, standard_phase_amplify
 from pbmm_tpu.phase.temporal import TemporalState, temporal_apply, temporal_init
@@ -51,30 +46,11 @@ from pbmm_tpu.spectral.fft import (
     rfft2_half,
 )
 from pbmm_tpu.spectral.mxu_fft import irfft2_mxu, rfft2_mxu
-from pbmm_tpu.spectral.pallas_fft import fft2_bitrev, ifft2_bitrev
 
 
 def _geometry(frame_shape, cfg: MagnifyConfig) -> Geometry:
     h, w = frame_shape[-3], frame_shape[-2]
     return geometry_for(h, w, cfg.pad_mode)
-
-
-def hermitian_active(cfg: MagnifyConfig, geom: Geometry) -> bool:
-    """Whether the Hermitian-half kept-lane spectral layout is in effect
-    (`spectral/hermitian.py`): only where the fully-fused path serves the
-    config AND the padded sizes tile cleanly AND the layout actually
-    saves lanes.  `hermitian_active` implies `fused_reconstruct_ok`, so a
-    kept-layout spectrum is never handed to a full-width consumer."""
-    from pbmm_tpu.spectral.fused import fused_eligible
-    from pbmm_tpu.spectral.hermitian import hermitian_saves
-
-    return (
-        cfg.use_hermitian_spectral
-        and fused_eligible(cfg)
-        and geom.pad_h % 128 == 0
-        and geom.pad_w % 128 == 0
-        and hermitian_saves(geom.pad_w)
-    )
 
 
 def preprocess(
@@ -83,7 +59,7 @@ def preprocess(
     """(..., H, W, 3) RGB -> (spectra (..., C, Hp, Wp) complex64, YIQ at
     *input* resolution (..., 3, H, W) f32, channels-first).  Leading batch
     dims (frames/videos) batch the FFT directly — no vmap — so XLA sees one
-    large transform.  Internals are channels-first so the minor (TPU-tiled)
+    large transform.  Internals are channels-first so the minor (contiguous)
     dims are the large spatial ones.
 
     Mirrors Blit(RGBToYIQ) -> PadTexture (+Hann) -> ExtractYChannel ->
@@ -102,59 +78,6 @@ def preprocess(
             chans_small = yiq
         else:
             chans_small = yiq[..., 0:1, :, :]  # Y plane only
-        if cfg.fft_backend == "pallas":
-            if geom.pad_h & (geom.pad_h - 1):
-                # Tight heights are served ONLY by the spectrum-resident
-                # chunk engine's four-step column transform; the
-                # standalone column kernel here is radix-2 and would
-                # SILENTLY compute garbage at non-pow-2 heights.
-                raise ValueError(
-                    "pad_mode='tight' with fft_backend='pallas' is served "
-                    "by engine.video.magnify_video (spectrum-resident "
-                    "chunk engine); the standalone pow-2 column kernel "
-                    "cannot transform "
-                    f"pad_h={geom.pad_h}.  Use magnify_video, or "
-                    "fft_backend='xla' for this entry point."
-                )
-            # Row-windowed forward: pad to the block-aligned content-row
-            # cover only (the other padded rows are exact zeros, with zero
-            # row-FFTs); the Hann window rides inside the row kernel and
-            # the zero rows are re-embedded in VMEM by the column kernel.
-            # Bit-exact vs the full-height chain at ~56% of the row work
-            # for 1080p.  With `hermitian_active`, only the kept lane
-            # tiles (9/16 at W=2048) leave the row kernel — the column
-            # FFT and everything downstream to the row-IFFT carries the
-            # Hermitian half-spectrum.
-            from pbmm_tpu.spectral.fused import (
-                aligned_row_window,
-                col_fft_zero_padded,
-                windowed_row_fft,
-            )
-
-            keep = hermitian_active(cfg, geom)
-            r0, r1 = aligned_row_window(
-                geom.y0, geom.y0 + geom.in_h, geom.pad_h
-            )
-            pads = [(0, 0)] * (chans_small.ndim - 2) + [
-                (geom.y0 - r0, r1 - geom.y0 - geom.in_h),
-                (geom.x0, geom.pad_w - geom.in_w - geom.x0),
-            ]
-            slab = jnp.pad(chans_small, pads)
-            shape = slab.shape
-            flat = slab.reshape((-1,) + shape[-2:])
-            with jax.named_scope("pbmm.fft"):
-                re, im = windowed_row_fft(
-                    flat, pad_h=geom.pad_h, row0=r0, keep_half=keep,
-                    interpret=cfg.interpret_pallas,
-                )
-                re, im = col_fft_zero_padded(
-                    re, im, pad_h=geom.pad_h, row0=r0,
-                    interpret=cfg.interpret_pallas,
-                )
-            spec = jax.lax.complex(re, im).reshape(
-                shape[:-2] + (geom.pad_h, re.shape[-1])
-            )
-            return spec, yiq
         padded = pad_center(chans_small, geom)
         win = hann2d(geom.pad_h, geom.pad_w)
         chans = padded * win
@@ -166,110 +89,6 @@ def preprocess(
             else:
                 spec = fft2_centered(chans)
         return spec, yiq
-
-
-def preprocess_cl(frames: jnp.ndarray, cfg: MagnifyConfig,
-                  through_col: bool = True, want_iq: bool = True):
-    """Channels-last preprocess for the batched chunk engine:
-    (T, H, W, 3) RGB -> (re, im, i_plane, q_plane).
-
-    `through_col=False` stops after the row-FFT kernel (re/im are the
-    (T[*3], Hc, Wk) content-row spectra): the spectrum-resident chunk
-    engine (`spectral.fused.colspec_chunk`) runs the column stages
-    itself, so the 2D spectrum never exists in HBM.
-
-    Planar input (r5): frames may be (T, 3, H, W) channel-planar (f32 or
-    uint8) — each YIQ plane is then a plane-wise FMA with no layout
-    change at all.  `want_iq=False` skips materializing the f32 I/Q
-    planes (the caller derives chroma from the uint8 planes inside the
-    post kernel); i_plane/q_plane return None.
-
-    y_only chroma: re/im are the (T, Hp, Wk) row+col FFT of the windowed
-    Y slab, and the original I/Q ride as (T, H, W) channels-last planes
-    for the post stage.
-
-    rgb chroma (r4): all three YIQ planes are FFT-bound — re/im are
-    (3T, Hp, Wk) with plane-minor frame-major ordering [Y0 I0 Q0 Y1 ...]
-    (so the pair-offset streaming reads frame t's plane c against frame
-    t-1's plane c), and i_plane/q_plane are None (every plane is
-    processed; the post stage has no original-chroma input).
-
-    Same math as `preprocess` but with NO (T,H,W,3) -> (T,3,H,W)
-    transpose: each YIQ plane is a minor-dim FMA (`RGBToYIQ.shader:
-    46-50`) fused into the pad (measured: XLA schedules the batched
-    channels-first transpose at ~0.26 ms/frame vs ~0.04 for this form).
-    Requires cfg.fft_backend == "pallas"."""
-    from pbmm_tpu.core.color import RGB_TO_YIQ
-    from pbmm_tpu.spectral.fused import (
-        aligned_row_window,
-        col_fft_zero_padded,
-        windowed_row_fft,
-    )
-
-    assert cfg.fft_backend == "pallas"
-    planar = frames.ndim == 4 and frames.shape[1] == 3 \
-        and frames.shape[-1] != 3
-    if planar:
-        h_in, w_in = frames.shape[-2], frames.shape[-1]
-    else:
-        h_in, w_in = frames.shape[-3], frames.shape[-2]
-    geom = geometry_for(h_in, w_in, cfg.pad_mode)
-    keep = hermitian_active(cfg, geom)
-    r0, r1 = aligned_row_window(geom.y0, geom.y0 + geom.in_h, geom.pad_h)
-    m = RGB_TO_YIQ
-    if (planar and frames.dtype == jnp.uint8 and cfg.chroma != "rgb"
-            and not through_col and not want_iq
-            and geom.pad_w & (geom.pad_w - 1) == 0):
-        # Full 8-bit ingestion (r5): the Y FMA + 1/255 + pad + Hann all
-        # run inside the row-FFT kernel — the f32 Y slab never exists in
-        # HBM; the post kernel derives chroma from the same u8 planes.
-        from pbmm_tpu.spectral.fused import windowed_row_fft_u8planar
-
-        with jax.named_scope("pbmm.fft"):
-            re, im = windowed_row_fft_u8planar(
-                frames, (float(m[0, 0]), float(m[0, 1]), float(m[0, 2])),
-                pad_h=geom.pad_h, pad_w=geom.pad_w, y0=geom.y0,
-                x0=geom.x0, row0=r0, keep_half=keep,
-                interpret=cfg.interpret_pallas,
-            )
-        return re, im, None, None
-    with jax.named_scope("pbmm.preprocess"):
-        f = unit_float(frames)
-        if planar:
-            rgb = (f[:, 0], f[:, 1], f[:, 2])
-        else:
-            rgb = (f[..., 0], f[..., 1], f[..., 2])
-        planes = [
-            rgb[0] * float(m[d, 0]) + rgb[1] * float(m[d, 1])
-            + rgb[2] * float(m[d, 2])
-            for d in range(3 if (cfg.chroma == "rgb" or want_iq) else 1)
-        ]
-        y = planes[0]
-        i_plane = planes[1] if len(planes) > 1 else None
-        q_plane = planes[2] if len(planes) > 2 else None
-        if cfg.chroma == "rgb":
-            # (T, 3, H, W) plane stack -> flatten to (3T, H, W); the
-            # stack is over the two MAJOR dims so no lane relayout.
-            fft_in = jnp.stack(planes, axis=-3).reshape(
-                (-1,) + y.shape[-2:])
-            i_plane = q_plane = None
-        else:
-            fft_in = y
-        slab = jnp.pad(fft_in, [(0, 0)] * (fft_in.ndim - 2) + [
-            (geom.y0 - r0, r1 - geom.y0 - geom.in_h),
-            (geom.x0, geom.pad_w - geom.in_w - geom.x0),
-        ])
-        with jax.named_scope("pbmm.fft"):
-            re, im = windowed_row_fft(
-                slab, pad_h=geom.pad_h, row0=r0, keep_half=keep,
-                interpret=cfg.interpret_pallas,
-            )
-            if through_col:
-                re, im = col_fft_zero_padded(
-                    re, im, pad_h=geom.pad_h, row0=r0,
-                    interpret=cfg.interpret_pallas,
-                )
-    return re, im, i_plane, q_plane
 
 
 def amplify_spectrum(
@@ -286,12 +105,7 @@ def amplify_spectrum(
 
 def _amplify_spectrum_impl(cur_spec, prev_spec, cfg, temporal_state):
     pad_h = cur_spec.shape[-2]
-    if cfg.fft_backend == "pallas":
-        layout = "bitrev2d"
-    elif cfg.use_rfft:
-        layout = "rfft"
-    else:
-        layout = "centered"
+    layout = "rfft" if cfg.use_rfft else "centered"
     # In rfft layout the array is (H, W//2+1); recover the spatial width
     # (square/rect pow-2 padding makes it unambiguous: W = 2*(Wk-1)).
     pad_w = 2 * (cur_spec.shape[-1] - 1) if cfg.use_rfft else cur_spec.shape[-1]
@@ -307,35 +121,15 @@ def _amplify_spectrum_impl(cur_spec, prev_spec, cfg, temporal_state):
         )
 
     if cfg.mode == "pyramid":
-        if (
-            cfg.use_pallas
-            and delta_override is None
-            and pad_w % 128 == 0
-        ):
-            # Constant-free kernel: masks evaluated in-kernel, trig-free
-            # rotation; HBM traffic = the spectra alone.
-            mod = pyramid_phase_amplify_pallas_procedural(
-                cur_spec,
-                prev_spec,
-                cfg,
-                layout,
-                interpret=cfg.interpret_pallas,
-            )
-        else:
-            # (r5) The old centered-layout mask-plane Pallas kernel was
-            # pruned: it was superseded by the procedural kernel above
-            # and by the fully-fused spectral path; configurations it
-            # served (delta overrides, non-128-aligned widths) take the
-            # layout-aware XLA procedural pass below.
-            # Procedural masks: constant-free, fuses into one VPU pass.
-            mod = pyramid_phase_amplify_procedural(
-                cur_spec,
-                prev_spec,
-                cfg,
-                delta_override=delta_override,
-                layout=layout,
-                full_pad_w=pad_w,
-            )
+        # Procedural masks: constant-free, fuses into one elementwise pass.
+        mod = pyramid_phase_amplify_procedural(
+            cur_spec,
+            prev_spec,
+            cfg,
+            delta_override=delta_override,
+            layout=layout,
+            full_pad_w=pad_w,
+        )
     else:
         weight = bandpass_weight_map_jnp(pad_h, pad_w, cfg, layout)
         mod = standard_phase_amplify(
@@ -357,15 +151,7 @@ def reconstruct(mod_spec: jnp.ndarray, cfg: MagnifyConfig,
     PerformIFFT with the reference's magnitude reduction
     (`FFT.compute:143-150`, `MotionMagnificationProcessor.cs:196`)."""
     with jax.named_scope("pbmm.ifft"):
-        if cfg.fft_backend == "pallas":
-            shape = mod_spec.shape
-            flat = mod_spec.reshape((-1,) + shape[-2:])
-            rre, rim = ifft2_bitrev(
-                jnp.real(flat), jnp.imag(flat),
-                interpret=cfg.interpret_pallas,
-            )
-            rec = jax.lax.complex(rre, rim).reshape(shape)
-        elif cfg.fft_backend == "mxu":
+        if cfg.fft_backend == "mxu":
             rec = irfft2_mxu(mod_spec, pad_w)  # real by construction
         elif cfg.use_rfft:
             rec = irfft2_half(mod_spec, pad_w)  # real by construction
@@ -377,85 +163,6 @@ def reconstruct(mod_spec: jnp.ndarray, cfg: MagnifyConfig,
         # full path's imaginary residue is fp noise (Hermitian symmetry).
         return jnp.abs(rec)
     return jnp.real(rec) if jnp.iscomplexobj(rec) else rec
-
-
-def fused_reconstruct_ok(cfg: MagnifyConfig, spec_shape) -> bool:
-    """Whether the fully-fused phase->col-IFFT / row-IFFT->|z| Pallas pair
-    (`spectral/fused.py`) serves this config and working size."""
-    from pbmm_tpu.spectral.fused import fused_eligible
-
-    h, w = spec_shape[-2:]
-    return fused_eligible(cfg) and h % 128 == 0 and w % 128 == 0
-
-
-def blur_row_window(geom: Geometry, cfg: MagnifyConfig):
-    """Block-aligned spatial-row cover of crop region + blur halo: the only
-    inverse-transform rows the output depends on."""
-    from pbmm_tpu.core.window import blur_taps
-    from pbmm_tpu.spectral.fused import aligned_row_window
-
-    radius = (len(blur_taps(cfg.blur_size)) - 1) // 2
-    return aligned_row_window(
-        geom.y0 - radius, geom.y0 + geom.in_h + radius, geom.pad_h
-    )
-
-
-def amplify_reconstruct_fused(
-    cur_spec: jnp.ndarray, prev_spec: jnp.ndarray, cfg: MagnifyConfig,
-    out_rows=None, full_w=None, temporal_state=None,
-):
-    """Band/phase amplification fused into the column-IFFT kernel, plus the
-    row-IFFT fused with the |z| reduction: the modified spectrum and the
-    complex reconstruction never round-trip HBM (two kernels instead of
-    five elementwise+FFT passes).  Output = `reconstruct(amplify(...))`
-    up to f32 rounding (same math, one fewer HBM round trip).
-
-    Post-mortem of the rejected deeper fusion (kept for the record): a
-    variant that carried the previous frame's *row*-FFT and recomputed the
-    column stages of both frames inside one kernel (col-fwd x2 + phase +
-    col-inv, eliminating the standalone column-forward kernel's 64 MB
-    round trip) measured 495 fps vs this structure's 623 fps at 1080p —
-    three in-VMEM column-stage sweeps plus the phase chain exceed the
-    ~0.35 ms the saved bytes buy at the ~180 GB/s Pallas streaming rate.
-    Bandwidth is only worth trading for compute at <= 2 stage-sweeps per
-    kernel on this chip."""
-    from pbmm_tpu.spectral.fused import phase_col_ifft, row_ifft_magnitude
-
-    shape = cur_spec.shape
-    fw = full_w if (full_w is not None) else shape[-1]
-    r0, r1 = out_rows if out_rows is not None else (0, shape[-2])
-    flat_c = cur_spec.reshape((-1,) + shape[-2:])
-    flat_p = prev_spec.reshape((-1,) + shape[-2:])
-    iir = cfg.temporal.mode == "iir_bandpass"
-    lp_kw = {}
-    if iir:
-        # The streaming IIR low-pass taps ride the phase kernel as carry
-        # planes (read once, written once — same HBM shape as a spectrum
-        # plane); BASELINE configs 2-3 run the fused path this way.
-        lp_kw = dict(
-            lp_fast=temporal_state.lp_fast.reshape((-1,) + shape[-2:]),
-            lp_slow=temporal_state.lp_slow.reshape((-1,) + shape[-2:]),
-        )
-    with jax.named_scope("pbmm.phase_ifft_fused"):
-        res = phase_col_ifft(
-            jnp.real(flat_c), jnp.imag(flat_c),
-            jnp.real(flat_p), jnp.imag(flat_p),
-            cfg, out_rows=out_rows, full_w=fw,
-            interpret=cfg.interpret_pallas, **lp_kw,
-        )
-        if iir:
-            rre, rim, nlpf, nlps = res
-            new_state = TemporalState(
-                nlpf.reshape(shape), nlps.reshape(shape)
-            )
-        else:
-            rre, rim = res
-            new_state = temporal_state
-        rec = row_ifft_magnitude(
-            rre, rim, magnitude=(cfg.reconstruct == "magnitude"),
-            pad_h=shape[-2], full_w=fw, interpret=cfg.interpret_pallas,
-        )
-    return rec.reshape(shape[:-2] + (r1 - r0, fw)), new_state
 
 
 def postprocess(
@@ -481,49 +188,41 @@ def postprocess(
 
 
 def posttail(
-    chans: jnp.ndarray, yiq_small: jnp.ndarray, cfg: MagnifyConfig,
-    row0: int = 0,
+    chans: jnp.ndarray, yiq_small: jnp.ndarray, cfg: MagnifyConfig
 ) -> jnp.ndarray:
     """Shared post stage on the real reconstruction: blur -> chroma combine
-    -> optional window compensation -> YIQ->RGB (saturate) -> crop.
-
-    `row0`: spatial-row offset of `chans` inside the padded frame when the
-    reconstruction was row-windowed (`blur_row_window`); 0 = full height.
-    """
+    -> optional window compensation -> YIQ->RGB (saturate) -> crop."""
     h, w = yiq_small.shape[-2:]
     geom = geometry_for(h, w, cfg.pad_mode)
-    # Row-windowed reconstructions shift the crop origin; the Hann-region
-    # window below still uses the TRUE padded geometry.
-    geom_rows = Geometry(
-        geom.in_h, geom.in_w, chans.shape[-2], geom.pad_w,
-        geom.y0 - row0, geom.x0,
-    )
     with jax.named_scope("pbmm.blur"):
         # Bit-identical to blur-at-padded-res + crop, on ~1/4 the pixels
         # (halo analysis in `core/window.py::blur_then_crop`).
-        chans = blur_then_crop(chans, geom_rows, cfg.blur_size)
+        chans = blur_then_crop(chans, geom, cfg.blur_size)
 
-    win_c = hann2d_region(geom)
-    if cfg.chroma == "rgb":
-        out_yiq = chans  # all three planes processed
-    else:
-        # Processed Y + the *windowed* original I/Q
-        # (`CombineYIQChannels.shader:44-57` reads the windowed padded YIQ).
-        out_yiq = jnp.concatenate(
-            [chans[..., 0:1, :, :], yiq_small[..., 1:, :, :] * win_c],
-            axis=-3,
-        )
+    with jax.named_scope("pbmm.post"):
+        win_c = hann2d_region(geom)
+        if cfg.chroma == "rgb":
+            out_yiq = chans  # all three planes processed
+        else:
+            # Processed Y + the *windowed* original I/Q
+            # (`CombineYIQChannels.shader:44-57` reads the windowed padded
+            # YIQ).
+            out_yiq = jnp.concatenate(
+                [chans[..., 0:1, :, :], yiq_small[..., 1:, :, :] * win_c],
+                axis=-3,
+            )
 
-    if cfg.compensate_window:
-        out_yiq = out_yiq / jnp.maximum(win_c, 1e-3)
+        if cfg.compensate_window:
+            out_yiq = out_yiq / jnp.maximum(win_c, 1e-3)
 
-    if cfg.apply_yiq_gains:
-        # The reference's (never-enabled) `_YIQADJUSTMENT_ON` channel gains
-        # multiply YIQ right before the RGB matrix (`YIQToRGB.shader:65-70`).
-        gains = jnp.asarray(cfg.yiq_gains, jnp.float32).reshape((3, 1, 1))
-        out_yiq = out_yiq * gains
+        if cfg.apply_yiq_gains:
+            # The reference's (never-enabled) `_YIQADJUSTMENT_ON` channel
+            # gains multiply YIQ right before the RGB matrix
+            # (`YIQToRGB.shader:65-70`).
+            gains = jnp.asarray(cfg.yiq_gains, jnp.float32).reshape((3, 1, 1))
+            out_yiq = out_yiq * gains
 
-    return yiq_to_rgb(out_yiq, saturate=True, axis=-3)
+        return yiq_to_rgb(out_yiq, saturate=True, axis=-3)
 
 
 def magnify_frame_pair(
@@ -537,23 +236,10 @@ def magnify_frame_pair(
       prev_rgb, cur_rgb: (H, W, 3) f32 RGB in [0, 1].
     Returns (H, W, 3) f32 RGB.
     """
-    from pbmm_tpu.spectral.pallas_fft import set_gm_precision
-
-    set_gm_precision(cfg.gm_precision)
     if not cfg.apply_motion_magnification:
         # Reference bypass (`MotionMagnificationProcessor.cs:126-139`).
         return unit_float(cur_rgb)
     cur_spec, cur_yiq = preprocess(cur_rgb, cfg)
     prev_spec, _ = preprocess(prev_rgb, cfg)
-    if fused_reconstruct_ok(cfg, cur_spec.shape) \
-            and cfg.temporal.mode == "two_frame":
-        geom = _geometry(cur_rgb.shape, cfg)
-        rows = blur_row_window(geom, cfg)
-        chans, _ = amplify_reconstruct_fused(
-            cur_spec, prev_spec, cfg, out_rows=rows, full_w=geom.pad_w
-        )
-        return jnp.moveaxis(
-            posttail(chans, cur_yiq, cfg, row0=rows[0]), -3, -1
-        )
     mod_spec, _ = amplify_spectrum(cur_spec, prev_spec, cfg)
     return jnp.moveaxis(postprocess(mod_spec, cur_yiq, cfg), -3, -1)

@@ -1,7 +1,7 @@
 """Checkpoint / resume of the streaming pipeline state.
 
 The reference has no checkpointing — its only cross-frame state is one
-texture, rebuilt every run (SURVEY.md §5).  Long TPU video jobs need to
+texture, rebuilt every run (SURVEY.md §5).  Long video jobs need to
 resume mid-stream, so `VideoState` (all-f32/i32 pytree) round-trips through
 a plain .npz file; a host restart resumes from the last emitted frame index
 with identical results (asserted by tests/test_checkpoint.py).

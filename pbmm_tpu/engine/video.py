@@ -3,9 +3,9 @@
 The reference's only cross-frame state is `previousSourceTexture` plus a
 first-frame flag (`MotionMagnificationProcessor.cs:56-57,75,111-117,142`).
 Here the carried state is an explicit, serializable pytree (`VideoState`) of
-f32 arrays: the previous frame's spectrum (split re/im — complex64 cannot
-cross host<->device on all TPU runtimes), optional previous-frame pixels for
-the no-cache parity mode, temporal IIR filter taps, and the frame index.
+f32 arrays: the previous frame's spectrum (split re/im, so a checkpoint holds
+plain float arrays), optional previous-frame pixels for the no-cache parity
+mode, temporal IIR filter taps, and the frame index.
 That makes long video jobs resumable mid-stream (SURVEY.md §5
 checkpoint/resume row) — see `engine.state`.
 
@@ -24,31 +24,14 @@ import jax.numpy as jnp
 from pbmm_tpu.config import MagnifyConfig
 from pbmm_tpu.core.color import unit_float
 from pbmm_tpu.core.complexop import combine
-from pbmm_tpu.engine.pipeline import (
-    amplify_reconstruct_fused,
-    amplify_spectrum,
-    fused_reconstruct_ok,
-    postprocess,
-    posttail,
-    preprocess,
-)
+from pbmm_tpu.engine.pipeline import amplify_spectrum, postprocess, preprocess
 from pbmm_tpu.phase.temporal import TemporalState, temporal_init
-
-
-def _norm_shape(frames):
-    """Shape normalized to the interleaved convention (T, H, W, 3) for
-    the engine-eligibility predicates."""
-    if _is_planar(frames):
-        t, _, h, w = frames.shape
-        return (t, h, w, 3)
-    return frames.shape
 
 
 def _is_planar(frames) -> bool:
     """(T, 3, H, W) channel-planar input (vs the reference's interleaved
     (T, H, W, 3) texture layout).  Planar is the y4m/video-file native
-    layout; with uint8 dtype it feeds the post kernel's in-VMEM chroma
-    path (r5)."""
+    layout."""
     return (frames.ndim == 4 and frames.shape[1] == 3
             and frames.shape[-1] != 3)
 
@@ -104,26 +87,10 @@ def video_step(
         # (`MotionMagnificationProcessor.cs:151-156`).
         prev_spec, _ = preprocess(state.prev_frame, cfg)
 
-    if fused_reconstruct_ok(cfg, cur_spec.shape):
-        # Phase pass fused into the column-IFFT kernel, |z| into the
-        # row-IFFT kernel (`spectral/fused.py`) — no modified spectrum or
-        # complex reconstruction in HBM; only the crop+blur-halo rows are
-        # ever written back (`blur_row_window`).
-        from pbmm_tpu.core.window import geometry_for
-        from pbmm_tpu.engine.pipeline import blur_row_window
-
-        geom = geometry_for(frame.shape[-3], frame.shape[-2], cfg.pad_mode)
-        rows = blur_row_window(geom, cfg)
-        chans, new_temporal = amplify_reconstruct_fused(
-            cur_spec, prev_spec, cfg, out_rows=rows, full_w=geom.pad_w,
-            temporal_state=state.temporal,
-        )
-        out = _emit(posttail(chans, cur_yiq, cfg, row0=rows[0]), cfg)
-    else:
-        mod_spec, new_temporal = amplify_spectrum(
-            cur_spec, prev_spec, cfg, state.temporal
-        )
-        out = _emit(postprocess(mod_spec, cur_yiq, cfg), cfg)
+    mod_spec, new_temporal = amplify_spectrum(
+        cur_spec, prev_spec, cfg, state.temporal
+    )
+    out = _emit(postprocess(mod_spec, cur_yiq, cfg), cfg)
 
     if cfg.cache_prev_spectrum:
         sre, sim = jnp.real(cur_spec), jnp.imag(cur_spec)
@@ -137,172 +104,6 @@ def video_step(
     return new_state, out
 
 
-def _tail_block(rre, rim, i_plane, q_plane, cfg, geom, rows, t, h, w,
-                rgb_u8=None):
-    """Pipeline tail from the phase/col-IFFT outputs to RGB frames: the
-    merged row-IFFT+post kernel where it serves (y_only + fused post
-    geometry — the real reconstruction never exists in HBM, r4), else
-    the two-kernel row-IFFT -> post chain.
-
-    rgb_u8: optional (T, 3, H, W) uint8 planar source frames — the fused
-    kernel then derives the original-chroma I/Q in VMEM (r5); the
-    configured `output_layout` is written directly by the kernel."""
-    from pbmm_tpu.core.window import hann2d_region
-    from pbmm_tpu.engine.post_pallas import post_pallas_ok, rowifft_post_fused
-    from pbmm_tpu.spectral.fused import row_ifft_magnitude
-
-    hr = rows[1] - rows[0]
-    if cfg.chroma != "rgb" and post_pallas_ok(geom, cfg, rows[0], hr):
-        win = hann2d_region(geom)
-        out_layout = {"interleaved": "tuple3", "planar": "planar",
-                      "planar_u8": "planar_u8"}[cfg.output_layout]
-        res = rowifft_post_fused(
-            rre, rim,
-            None if rgb_u8 is not None else i_plane,
-            None if rgb_u8 is not None else q_plane,
-            win, cfg, rows[0], h, w,
-            cfg.pad_mode, full_w=geom.pad_w, rgb_u8=rgb_u8,
-            out_layout=out_layout,
-            interpret=cfg.interpret_pallas,
-        )
-        if out_layout == "tuple3":
-            return jnp.stack(list(res), axis=-1)
-        return res
-    if rgb_u8 is not None and i_plane is None:
-        # Fallback tail: derive the f32 I/Q planes once in XLA.
-        from pbmm_tpu.core.color import RGB_TO_YIQ
-
-        f = rgb_u8.astype(jnp.float32) * jnp.float32(1.0 / 255.0)
-        m = RGB_TO_YIQ
-        i_plane = (f[:, 0] * float(m[1, 0]) + f[:, 1] * float(m[1, 1])
-                   + f[:, 2] * float(m[1, 2]))
-        q_plane = (f[:, 0] * float(m[2, 0]) + f[:, 1] * float(m[2, 1])
-                   + f[:, 2] * float(m[2, 2]))
-    rec = row_ifft_magnitude(
-        rre, rim, magnitude=(cfg.reconstruct == "magnitude"),
-        pad_h=geom.pad_h, full_w=geom.pad_w,
-        interpret=cfg.interpret_pallas,
-    )
-    return _post_block(rec, i_plane, q_plane, cfg, geom, rows, t, h, w)
-
-
-def _colspec_ok(cfg: MagnifyConfig, frame_shape) -> bool:
-    """Whether the spectrum-resident chunk engine (r5,
-    `spectral.fused.colspec_chunk`) serves this config: the fused
-    spectral path with cached spectra, in either temporal mode, any
-    chroma — the column stages and the carried state live in
-    VMEM scratch, so the 2D spectrum never exists in HBM."""
-    from pbmm_tpu.core.window import geometry_for
-    from pbmm_tpu.engine.pipeline import hermitian_active
-    from pbmm_tpu.spectral.hermitian import hermitian_kept_width
-
-    if not (cfg.cache_prev_spectrum
-            and cfg.temporal.mode in ("two_frame", "iir_bandpass")):
-        return False
-    geom = geometry_for(frame_shape[-3], frame_shape[-2], cfg.pad_mode)
-    wk = (hermitian_kept_width(geom.pad_w)
-          if hermitian_active(cfg, geom) else geom.pad_w)
-    return fused_reconstruct_ok(cfg, (geom.pad_h, wk))
-
-
-def _chunk_colspec(frames, state: VideoState, cfg: MagnifyConfig):
-    """Spectrum-resident chunk engine (r5): pre + row-FFT batch over the
-    chunk, then ONE kernel runs every frame's column-FFT + band/phase +
-    column-IFFT with the previous frame's spectrum (and the IIR low-pass
-    taps) carried across the frame axis in VMEM scratch
-    (`colspec_chunk`), then the merged row-IFFT+post kernel batches
-    again.  vs the r4 engines: the column spectrum's HBM round trip
-    (~30-65 MB/frame) is gone, and the same kernel serves two-frame,
-    IIR, y_only and rgb (no grouped/scan special cases)."""
-    from pbmm_tpu.core.window import geometry_for
-    from pbmm_tpu.engine.pipeline import blur_row_window, preprocess_cl
-    from pbmm_tpu.spectral.fused import colspec_chunk
-
-    t = frames.shape[0]
-    _, h, w, _ = _norm_shape(frames)
-    geom = geometry_for(h, w, cfg.pad_mode)
-    rows = blur_row_window(geom, cfg)
-    c = 3 if cfg.chroma == "rgb" else 1
-    from pbmm_tpu.spectral.fused import aligned_row_window
-
-    r0, _ = aligned_row_window(geom.y0, geom.y0 + geom.in_h, geom.pad_h)
-    # uint8 planar sources feed the post kernel's in-VMEM chroma path —
-    # the f32 I/Q planes are never materialized (r5).
-    from pbmm_tpu.engine.post_pallas import post_pallas_ok
-
-    rgb_u8 = None
-    if (_is_planar(frames) and frames.dtype == jnp.uint8
-            and cfg.chroma != "rgb"
-            and post_pallas_ok(geom, cfg, rows[0], rows[1] - rows[0])):
-        rgb_u8 = frames
-    rre_rows, rim_rows, i_plane, q_plane = preprocess_cl(
-        frames, cfg, through_col=False, want_iq=rgb_u8 is None
-    )
-    iir = cfg.temporal.mode == "iir_bandpass"
-    lp_kw = {}
-    if iir:
-        lp_kw = dict(lp_fast=state.temporal.lp_fast,
-                     lp_slow=state.temporal.lp_slow)
-    with jax.named_scope("pbmm.colspec_chunk"):
-        res = colspec_chunk(
-            rre_rows, rim_rows, state.prev_spec_re, state.prev_spec_im,
-            cfg, pad_h=geom.pad_h, row0=r0, out_rows=rows,
-            full_w=geom.pad_w, planes=c,
-            interpret=cfg.interpret_pallas, **lp_kw,
-        )
-        if iir:
-            rres, rims, npr, npi, nlpf, nlps = res
-            new_temporal = TemporalState(nlpf, nlps)
-        else:
-            rres, rims, npr, npi = res
-            new_temporal = state.temporal
-        outs = _tail_block(rres, rims, i_plane, q_plane, cfg, geom, rows,
-                           t, h, w, rgb_u8=rgb_u8)
-    new_state = VideoState(
-        npr, npi, state.prev_frame, new_temporal,
-        state.frame_idx + jnp.int32(t),
-    )
-    return outs, new_state
-
-
-def _post_block(rec, i_plane, q_plane, cfg, geom, rows, t, h, w):
-    """Shared post tail of the batched engines: fused Pallas post kernel
-    where eligible, else the XLA posttail; returns (T, H, W, 3) RGB."""
-    from pbmm_tpu.core.window import hann2d_region
-    from pbmm_tpu.engine.pipeline import posttail
-    from pbmm_tpu.engine.post_pallas import post_fused, post_pallas_ok
-
-    rgb = cfg.chroma == "rgb"
-    hr = rows[1] - rows[0]
-    if post_pallas_ok(geom, cfg, rows[0], hr):
-        win = hann2d_region(geom)
-        if rgb:
-            from pbmm_tpu.engine.post_pallas import post_fused_rgb
-
-            rp, gp, bp = post_fused_rgb(
-                rec, win, cfg, rows[0], h, w, cfg.pad_mode,
-                interpret=cfg.interpret_pallas,
-            )
-        else:
-            rp, gp, bp = post_fused(
-                rec, i_plane, q_plane, win, cfg, rows[0], h, w,
-                cfg.pad_mode, interpret=cfg.interpret_pallas,
-            )
-        return _emit(jnp.stack([rp, gp, bp], axis=-3), cfg)
-    if rgb:
-        chans = rec.reshape((t, 3, hr, geom.pad_w))
-        # posttail's rgb branch reads yiq_small only for geometry; the
-        # zero array is unused -> DCE'd by XLA.
-        return _emit(
-            posttail(chans, jnp.zeros((t, 3, h, w), jnp.float32), cfg,
-                     row0=rows[0]), cfg)
-    chans = rec.reshape((t, 1, hr, geom.pad_w))
-    yiq3 = jnp.stack([i_plane, i_plane, q_plane], axis=-3)
-    return _emit(posttail(chans, yiq3, cfg, row0=rows[0]), cfg)
-
-
-import os as _os
-
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _chunk_scan(frames, state: VideoState, cfg: MagnifyConfig):
     final_state, outs = jax.lax.scan(
@@ -311,86 +112,18 @@ def _chunk_scan(frames, state: VideoState, cfg: MagnifyConfig):
     return outs, final_state
 
 
-def _use_batched(cfg: MagnifyConfig) -> bool:
-    """Engine select: `cfg.engine` (static, hashed, checkpointed).  The
-    PBMM_SCANFREE env var survives only as an A/B measurement override
-    (0 forces scan, 1 forces batched-where-eligible); read per call so
-    scripts can flip it between runs."""
-    env = _os.environ.get("PBMM_SCANFREE")
-    if env is not None:
-        return env == "1"
-    return cfg.engine == "batched"
-
-
-_chunk_colspec_jit = functools.partial(
-    jax.jit, static_argnames=("cfg",)
-)(lambda frames, state, cfg: _chunk_colspec(frames, state, cfg))
-
-
-def _tight_pallas(cfg: MagnifyConfig) -> bool:
-    return cfg.pad_mode == "tight" and cfg.fft_backend == "pallas"
-
-
-def _magnify_chunk(frames, state: VideoState, cfg: MagnifyConfig):
-    shape = _norm_shape(frames)
-    if _use_batched(cfg) and frames.shape[0] > 0:
-        if _colspec_ok(cfg, shape):
-            return _chunk_colspec_jit(frames, state, cfg)
-    if _tight_pallas(cfg):
-        # The per-frame Pallas kernels are pow-2-only on the column axis;
-        # only the spectrum-resident chunk engine carries the four-step
-        # tight-height transform.
-        raise ValueError(
-            "pad_mode='tight' with fft_backend='pallas' requires the "
-            "batched engine with cached spectra (engine='batched', "
-            "cache_prev_spectrum=True, fused spectral path); use "
-            "fft_backend='xla' for other engine combinations"
-        )
-    return _chunk_scan(frames, state, cfg)
-
-
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _magnify_bootstrap(frames, cfg: MagnifyConfig):
-    shape = _norm_shape(frames)
-    if ((_tight_pallas(cfg) or _is_planar(frames))
-            and _colspec_ok(cfg, shape)):
-        # Tight-height bootstrap: `video_init`'s standalone column FFT is
-        # pow-2-only, so frame 0 runs THROUGH the chunk kernel against a
-        # zero previous spectrum instead.  Every gate sees |prev| = 0 < tau
-        # (pass-through) and the IIR delta is atan2(0, 0) = 0 (lp taps stay
-        # zero), so the carried state after frame 0 is exactly
-        # {spectrum(frame 0), zero taps} — frame 0's output plane is
-        # discarded and replaced by the reference's first-frame
-        # passthrough (`MotionMagnificationProcessor.cs:111-117`).
-        from pbmm_tpu.core.window import geometry_for
-        from pbmm_tpu.engine.pipeline import hermitian_active
-        from pbmm_tpu.spectral.hermitian import hermitian_kept_width
-
-        geom = geometry_for(shape[-3], shape[-2], cfg.pad_mode)
-        wk = (hermitian_kept_width(geom.pad_w)
-              if hermitian_active(cfg, geom) else geom.pad_w)
-        c = 3 if cfg.chroma == "rgb" else 1
-        zeros = jnp.zeros((c, geom.pad_h, wk), jnp.float32)
-        state = VideoState(
-            zeros, zeros, jnp.zeros((0, 0, 0), jnp.float32),
-            temporal_init((c, geom.pad_h, wk), cfg.temporal),
-            jnp.int32(0),
-        )
-        outs, final_state = _magnify_chunk(frames, state, cfg)
-        first_out = _first_passthrough(frames, cfg)
-        return jnp.concatenate([first_out, outs[1:]], axis=0), final_state
     state = video_init(frames[0], cfg)
     first_out = _first_passthrough(frames, cfg)
-    outs, final_state = _magnify_chunk(frames[1:], state, cfg)
+    outs, final_state = _chunk_scan(frames[1:], state, cfg)
     return jnp.concatenate([first_out, outs], axis=0), final_state
 
 
 def _first_passthrough(frames, cfg: MagnifyConfig):
     """Frame 0 in the configured output layout (the reference's
     first-frame bootstrap emits the source frame unmodified)."""
-    cf = (unit_float(frames[0]) if _is_planar(frames)
-          else jnp.moveaxis(unit_float(frames[0]), -1, -3))
-    return _emit(cf, cfg)[None]
+    return _emit(jnp.moveaxis(unit_float(frames[0]), -1, -3), cfg)[None]
 
 
 def magnify_video(
@@ -399,7 +132,8 @@ def magnify_video(
     """Magnify a clip.
 
     Args:
-      frames: (T, H, W, 3) f32 RGB in [0, 1].
+      frames: (T, H, W, 3) RGB, f32 in [0, 1] or uint8; channel-planar
+        (T, 3, H, W) input is accepted too.
       state: optional carry from a previous chunk (streaming / resume).
         When None, frame 0 bootstraps the state and passes through
         unmodified, like the reference's first rendered frame.
@@ -411,57 +145,26 @@ def magnify_video(
     the analog of `OnValidate` retracing on parameter edits); repeat calls
     with the same shapes/config dispatch without retracing.
     """
-    from pbmm_tpu.spectral.pallas_fft import set_gm_precision
-
-    set_gm_precision(cfg.gm_precision)
     frames = jnp.asarray(frames)
-    if _is_planar(frames) and not (
-        _use_batched(cfg) and _colspec_ok(cfg, _norm_shape(frames))
-    ):
-        # Planar input is first-class only on the spectrum-resident chunk
-        # engine; every other path takes the interleaved layout.
+    if _is_planar(frames):
         frames = jnp.moveaxis(frames, 1, -1)
     if not cfg.apply_motion_magnification:
         # Reference bypass: frames pass through untouched, but the previous
         # frame keeps being tracked so re-enabling magnification mid-stream
         # pairs with the true predecessor
         # (`MotionMagnificationProcessor.cs:126-139,142`).
-        new_state = _bypass_state(
-            jnp.moveaxis(frames, 1, -1) if _is_planar(frames) else frames,
-            cfg)
+        new_state = _bypass_state(frames, cfg)
         if state is not None:
             new_state = new_state._replace(
                 frame_idx=state.frame_idx + jnp.int32(frames.shape[0])
             )
-        cf = (unit_float(frames) if _is_planar(frames)
-              else jnp.moveaxis(unit_float(frames), -1, -3))
-        return _emit(cf, cfg), new_state
+        return _emit(jnp.moveaxis(unit_float(frames), -1, -3), cfg), new_state
     if state is None:
         return _magnify_bootstrap(frames, cfg)
-    return _magnify_chunk(frames, state, cfg)
+    return _chunk_scan(frames, state, cfg)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _bypass_state(frames, cfg: MagnifyConfig) -> VideoState:
-    if _tight_pallas(cfg):
-        # video_init's standalone column FFT is pow-2-only; carry a zero
-        # spectrum instead.  Re-enabling magnification mid-stream then
-        # passes the first frame through (every gate sees |prev| = 0),
-        # which is the reference's own first-frame behavior.
-        from pbmm_tpu.core.window import geometry_for
-        from pbmm_tpu.engine.pipeline import hermitian_active
-        from pbmm_tpu.spectral.hermitian import hermitian_kept_width
-
-        geom = geometry_for(frames.shape[-3], frames.shape[-2],
-                            cfg.pad_mode)
-        wk = (hermitian_kept_width(geom.pad_w)
-              if hermitian_active(cfg, geom) else geom.pad_w)
-        c = 3 if cfg.chroma == "rgb" else 1
-        zeros = jnp.zeros((c, geom.pad_h, wk), jnp.float32)
-        return VideoState(
-            zeros, zeros, jnp.zeros((0, 0, 0), jnp.float32),
-            temporal_init((c, geom.pad_h, wk), cfg.temporal),
-            jnp.int32(frames.shape[0]),
-        )
     state = video_init(frames[-1], cfg)
     return state._replace(frame_idx=jnp.int32(frames.shape[0]))

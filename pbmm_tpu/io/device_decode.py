@@ -2,7 +2,7 @@
 
 The pure-numpy y4m reader (`io.y4m`) decodes on the host: chroma
 upsample + BT.601 matrix in f32, then 12 bytes/px of RGB cross
-host->device.  This module moves the decode ONTO the TPU (r4): the raw
+host->device.  This module moves the decode onto the device: the raw
 uint8 planes transfer (~1.5 bytes/px for C420) and one jitted XLA
 computation performs the identical nearest-neighbor upsample and
 limited-range BT.601 conversion (`io/y4m.py::_ycbcr_to_rgb` /
@@ -59,10 +59,8 @@ def ycbcr_planes_to_rgb_planar_u8(y_u8: jnp.ndarray, cb_u8: jnp.ndarray,
                                   cr_u8: jnp.ndarray, h: int,
                                   w: int) -> jnp.ndarray:
     """(T, H, W) u8 luma + (T, ch, cw) u8 chroma -> (T, 3, H, W) uint8
-    planar RGB (r5): the layout + dtype the 8-bit ingestion kernels eat
-    (`windowed_row_fft_u8planar` + the post kernel's in-VMEM chroma) —
-    the full pipeline then never materializes an f32 plane of the
-    source.  Values are the f32 decode rounded once to 8 bits — exactly
+    planar RGB: a quarter of the f32 bytes on the way into
+    `magnify_video`, which converts to f32 on device.  Values are the f32 decode rounded once to 8 bits — exactly
     what every rgb24 video decoder emits (the y4m source was 8-bit to
     begin with)."""
     rgb = ycbcr_planes_to_rgb(y_u8, cb_u8, cr_u8, h, w)  # (T, H, W, 3)

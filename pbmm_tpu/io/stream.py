@@ -98,10 +98,9 @@ def _y4m_device_chunks(plane_iter, chunk_frames: int,
     (`io.device_decode.ycbcr_planes_to_rgb`), so a C420 stream crosses
     host->device at ~1.5 bytes/px instead of 12 for host-decoded f32.
 
-    planar_u8 (r5, `--ingest u8`): emit (T, 3, H, W) uint8 planar RGB —
-    the layout the 8-bit ingestion kernels eat (~2.3x the pipeline
-    throughput; one extra 8-bit rounding vs the f32 decode, the same
-    rounding every rgb24 decoder applies)."""
+    planar_u8 (`--ingest u8`): emit (T, 3, H, W) uint8 planar RGB — a
+    quarter of the f32 bytes into the engine (one extra 8-bit rounding
+    vs the f32 decode, the same rounding every rgb24 decoder applies)."""
     from pbmm_tpu.io.device_decode import (
         ycbcr_planes_to_rgb,
         ycbcr_planes_to_rgb_planar_u8,
@@ -174,9 +173,8 @@ def stream_magnify(
     native double-buffered loader (or a memmap), .y4m inputs through the
     frame-at-a-time parser, and `path="-"` reads a y4m stream from stdin.
 
-    ingest="u8" (r5): y4m sources decode to planar uint8 RGB on device,
-    feeding the 8-bit ingestion kernels (~2.3x throughput; one 8-bit
-    rounding vs the f32 decode — the rounding every rgb24 decoder
+    ingest="u8": y4m sources decode to planar uint8 RGB on device (one
+    8-bit rounding vs the f32 decode — the rounding every rgb24 decoder
     applies anyway).
     """
     loader, chunk_iter = _open_chunk_source(path, chunk_frames,

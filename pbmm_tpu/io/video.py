@@ -1,7 +1,7 @@
 """Video tensor I/O.
 
 The reference has no video I/O at all — frames arrive from Unity's renderer
-(`OnRenderImage`).  The TPU framework is offline/streaming, so clips are
+(`OnRenderImage`).  This framework is offline/streaming, so clips are
 exchanged as arrays: .npy/.npz/.y4m natively (y4m is a zero-dependency numpy parser,
 `io/y4m.py`); other containers via imageio/cv2 when available (gated —
 neither ships in the baked image).

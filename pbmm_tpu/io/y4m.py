@@ -1,7 +1,7 @@
 """YUV4MPEG2 (.y4m) reader/writer — pure numpy, zero dependencies.
 
 The reference has no video I/O (frames come from Unity's renderer,
-`OnRenderImage`); for the offline TPU framework .y4m is the lingua franca
+`OnRenderImage`); for this offline framework .y4m is the lingua franca
 uncompressed interchange format (`ffmpeg -i in.mp4 out.y4m`), so clips can
 move in/out without optional decoders in the image.
 
@@ -103,9 +103,9 @@ def read_y4m_planes(f, name: str = "<stream>", meta: dict = None
         Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield raw (y (H,W), cb (ch,cw), cr (ch,cw)) uint8 planes per frame
     from an open binary stream — the zero-conversion reader the
-    device-decode streaming path builds on (r4: planes cross host->device
+    device-decode streaming path builds on (planes cross host->device
     as ~1.5 bytes/px instead of 12 for decoded f32 RGB, and the chroma
-    upsample + BT.601 matrix run on the TPU, `io.device_decode`).
+    upsample + BT.601 matrix run on the device, `io.device_decode`).
 
     `meta`: optional dict populated from the header before the first
     frame is yielded ({"w", "h", "colorspace", "fps"}) — the pipe loop

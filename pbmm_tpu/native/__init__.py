@@ -25,14 +25,21 @@ _build_failed = False
 
 
 def _build() -> bool:
+    # Build into a private file and rename it into place: processes that
+    # build at the same time (test workers) never load a half-written
+    # library.
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        "-pthread", _SRC, "-o", _LIB,
+        "-pthread", _SRC, "-o", tmp,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
-    except (subprocess.SubprocessError, FileNotFoundError):
+    except (subprocess.SubprocessError, OSError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 

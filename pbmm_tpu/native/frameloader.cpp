@@ -1,11 +1,11 @@
 // Native streaming frame loader for pbmm_tpu.
 //
 // The reference's "runtime" is Unity's player loop handing RenderTextures to
-// the effect (`OnRenderImage`, MotionMagnificationProcessor.cs:101); the TPU
+// the effect (`OnRenderImage`, MotionMagnificationProcessor.cs:101); this
 // framework's analog is a host-side streaming reader that keeps the device
 // fed: a background prefetch thread reads + converts the next chunk of
 // frames (uint8 -> f32 [0,1]) into a ring of pinned host buffers while the
-// previous chunk is being magnified on the TPU.
+// previous chunk is being magnified on the device.
 //
 // Supports .npy (THWC, dtype |u1 or <f4, C-order) via a minimal header
 // parser; exposed through a C API consumed with ctypes

@@ -3,7 +3,7 @@
 This module re-states, in double precision numpy, exactly the math the Unity
 reference performs per frame (every formula cited to its HLSL/C# source).  It
 is deliberately written as a straight-line, per-band, unfused program — the
-*opposite* shape from the fused TPU implementation — so agreement between the
+*opposite* shape from the fused jitted implementation — so agreement between the
 two is meaningful evidence of correctness (SURVEY.md §4, test strategy (b)).
 
 Pipeline per frame pair (SURVEY.md §3.2):
@@ -200,7 +200,7 @@ def _blur_1d(img, taps, axis):
 def _preprocess(frame, cfg):
     """-> ((C, ph, pw) spectra, windowed padded YIQ, geometry).  C = 1
     (the Y plane, reference behavior) or 3 when chroma="rgb" (all YIQ
-    planes FFT-bound — the TPU extension; r5: the oracle previously
+    planes FFT-bound — this build's extension; the oracle previously
     amplified only Y even for rgb configs, so rgb parity numbers were
     comparing against the WRONG spec)."""
     h, w = frame.shape[:2]
@@ -295,7 +295,7 @@ def oracle_magnify_video(frames: np.ndarray, cfg) -> np.ndarray:
 
 def oracle_magnify_video_iir(frames: np.ndarray, cfg) -> np.ndarray:
     """fp64 straight-line transcription of the streaming IIR temporal mode
-    (the TPU extension; `phase/temporal.py`, BASELINE.json configs 2-5):
+    (this build's extension; `phase/temporal.py`, BASELINE.json configs 2-5):
     the per-bin phase-delta stream is band-passed with the difference of
     two first-order low-passes carried across frames before amplification.
 

@@ -3,10 +3,11 @@
 The reference is strictly single-machine/single-GPU (SURVEY.md §2.5); this
 layer is the BASELINE-specified green-field scale-out path:
 
-- one process per host, `jax.distributed.initialize` over DCN;
-- a ("host", "chip") -> flattened ("data", "frame") mesh where the host
-  axis only carries independent videos (DCN traffic = input distribution
-  and final gather; all per-video halo exchange stays on ICI);
+- one process per host, `jax.distributed.initialize` over the network;
+- a ("host", "card") -> flattened ("data", "frame") mesh where the host
+  axis only carries independent videos (network traffic = input
+  distribution and final gather; all per-video halo exchange stays on the
+  host's card-to-card links);
 - health: initialization itself is the failure detector (a dead host fails
   the barrier); recovery is driver-level — restart and resume from the
   last `VideoState` checkpoint (`engine/state.py`), which reproduces the
@@ -57,8 +58,8 @@ def initialize_distributed(
 
 def global_mesh(n_videos: int = 1):
     """Mesh over ALL devices (across hosts).  Videos shard over "data"
-    (host-aligned when possible so a video's frames stay on one host's ICI
-    domain), frames over "frame"."""
+    (host-aligned when possible so a video's frames stay on one host's
+    card-to-card links), frames over "frame"."""
     n = jax.device_count()
     return make_mesh(mesh_shape_for(n, n_videos))
 

@@ -3,14 +3,14 @@
 Two formulations of the two-frame pipeline:
 
 - `magnify_clip_batched`: all frames processed as one batch — FFTs batch over
-  the frame axis (MXU/HBM-efficient; no sequential scan dependency).  The
+  the frame axis (one large transform; no sequential scan dependency).  The
   previous-frame spectrum is a shifted slice of the batch, so each frame's
   spectrum is computed exactly once (the reference computes it twice —
   `MotionMagnificationProcessor.cs:151-156`).
 - `magnify_batch_sharded`: the same math under pjit over a
   ("data", "frame") mesh: videos shard over "data", frames over "frame".
   The shifted-slice becomes a 1-frame halo exchange across shard boundaries
-  (XLA inserts a collective-permute over ICI) — the degenerate
+  (XLA inserts a collective-permute between devices) — the degenerate
   ring-attention-style neighbor exchange anticipated in SURVEY.md §5.
 
 The streaming IIR temporal mode has a sequential dependency over frames and
@@ -34,69 +34,6 @@ from pbmm_tpu.engine.pipeline import (
 )
 
 
-def _magnify_clip_fused(frames: jnp.ndarray, cfg: MagnifyConfig) -> jnp.ndarray:
-    """Fully-fused Pallas spectral path (see `spectral/fused.py`): three
-    kernels carry window->FFT, phase->col-IFFT, row-IFFT->|z| without
-    intermediate HBM round trips."""
-    from pbmm_tpu.core.color import rgb_to_yiq, yiq_to_rgb
-    from pbmm_tpu.core.window import (
-        blur_then_crop,
-        geometry_for,
-        hann2d_region,
-        pad_center,
-    )
-    from pbmm_tpu.spectral.fused import (
-        phase_col_ifft,
-        row_ifft_magnitude,
-        windowed_row_fft,
-    )
-    from pbmm_tpu.spectral.pallas_fft import _fft_axis
-
-    from pbmm_tpu.engine.pipeline import hermitian_active
-
-    t, h, w, _ = frames.shape
-    geom = geometry_for(h, w, cfg.pad_mode)
-    keep = hermitian_active(cfg, geom)
-    yiq = rgb_to_yiq(jnp.moveaxis(frames.astype(jnp.float32), -1, -3),
-                     axis=-3)  # (T, 3, H, W)
-    if cfg.chroma == "rgb":
-        chans = yiq
-    else:
-        chans = yiq[:, 0:1]
-    c = chans.shape[1]
-    y_pad = pad_center(chans, geom).reshape(t * c, geom.pad_h, geom.pad_w)
-
-    re, im = windowed_row_fft(y_pad, keep_half=keep,
-                              interpret=cfg.interpret_pallas)
-    re, im = _fft_axis(re, im, 1, False, 1.0, cfg.interpret_pallas)
-
-    # 1-frame halo: prev of (frame t, chan k) is (frame t-1, chan k).
-    prev_re = jnp.concatenate([re[:c], re[:-c]], axis=0)
-    prev_im = jnp.concatenate([im[:c], im[:-c]], axis=0)
-
-    rre, rim = phase_col_ifft(re, im, prev_re, prev_im, cfg,
-                              full_w=geom.pad_w,
-                              interpret=cfg.interpret_pallas)
-    rec = row_ifft_magnitude(
-        rre, rim, magnitude=(cfg.reconstruct == "magnitude"),
-        full_w=geom.pad_w, interpret=cfg.interpret_pallas,
-    )  # (T*C, Hp, Wp) real
-
-    # Bit-identical to blur-at-padded-res + crop, on ~1/4 the pixels
-    # (halo analysis in `core/window.py::blur_then_crop`).
-    rec = blur_then_crop(rec, geom, cfg.blur_size).reshape(t, c, h, w)
-
-    win_c = hann2d_region(geom)
-    if cfg.chroma == "rgb":
-        out_yiq = rec
-    else:
-        out_yiq = jnp.concatenate([rec, yiq[:, 1:] * win_c], axis=1)
-    if cfg.compensate_window:
-        out_yiq = out_yiq / jnp.maximum(win_c, 1e-3)
-    out = jnp.moveaxis(yiq_to_rgb(out_yiq, saturate=True, axis=-3), -3, -1)
-    return jnp.concatenate([frames[:1].astype(jnp.float32), out[1:]], axis=0)
-
-
 def _magnify_clip_batched_impl(
     frames: jnp.ndarray, cfg: MagnifyConfig
 ) -> jnp.ndarray:
@@ -107,10 +44,6 @@ def _magnify_clip_batched_impl(
     if not cfg.apply_motion_magnification:
         # Reference bypass (`MotionMagnificationProcessor.cs:126-139`).
         return frames.astype(jnp.float32)
-    from pbmm_tpu.spectral.fused import fused_eligible
-
-    if fused_eligible(cfg):
-        return _magnify_clip_fused(frames, cfg)
     # All stages are natively rank-generic: the frame axis batches the FFTs
     # directly (one large transform, not vmap-of-small-transforms).
     specs, yiqs = preprocess(frames, cfg)
@@ -131,9 +64,6 @@ _magnify_clip_batched_jit = jax.jit(_magnify_clip_batched_impl, static_argnums=1
 
 def magnify_clip_batched(frames, cfg: MagnifyConfig):
     """Single-device batched two-frame magnification of one clip."""
-    from pbmm_tpu.spectral.pallas_fft import set_gm_precision
-
-    set_gm_precision(cfg.gm_precision)
     return _magnify_clip_batched_jit(frames, cfg)
 
 
@@ -160,10 +90,7 @@ def magnify_batch_sharded(
 
     Each video's frames shard across the "frame" axis; the shifted-slice
     previous-spectrum access crosses shard boundaries as a 1-frame halo
-    (collective-permute over ICI).
+    (collective-permute between devices).
     """
-    from pbmm_tpu.spectral.pallas_fft import set_gm_precision
-
-    set_gm_precision(cfg.gm_precision)
     in_sh, _ = batch_shardings(mesh)
     return _sharded_fn(cfg, mesh)(jax.device_put(frames, in_sh))

@@ -7,9 +7,9 @@ for one chip: the 2D FFT becomes
     ->  local col-FFT
 
 so each chip always transforms full contiguous lines; the only
-communication is one all-to-all per transform over ICI (the classic
+communication is one all-to-all per transform (the classic
 distributed-FFT decomposition — SURVEY.md §7.3 called this out as the
-TPU-shaped analog of ButterflyByRow/Col).  The phase pass is elementwise
+sharded analog of ButterflyByRow/Col).  The phase pass is elementwise
 on natural-layout spectrum shards (masks evaluated procedurally at each
 shard's global frequencies); the inverse mirrors the forward; the 5-tap
 blur needs a 2-row halo exchange with ppermute at shard boundaries.
@@ -24,17 +24,11 @@ Two engines, both `shard_map`-based:
 - `magnify_frame_pair_spatial`: one (prev, cur) pair over a ("rows",)
   mesh — a thin wrapper over the video engine with T=2.
 
-Coverage (r5 parity): pyramid (radial/steerable) and standard mode,
-two-frame and iir_bandpass temporal, y_only and rgb chroma — everything
-the single-chip engine serves, except IIR + FRAME sharding (sequential
-recurrence; rejected with a pointer to rows-only meshes).  Two
-spectral backends compose with the same all-to-all decomposition: the XLA
-FFT (natural layout) and, since r3, the hand-scheduled Pallas kernels
-per shard (bitrev layout, fused phase + col-IFFT with the shard's global
-frequencies passed as a traced vector — `_spectral_pallas_local`), so
-the spatial engine is no longer a slower re-implementation of the
-single-chip math (VERDICT r2 weak #6).  Tested against the unsharded
-pipeline on the virtual CPU mesh (`tests/test_spatial.py`).
+Coverage: pyramid (radial/steerable) and standard mode, two-frame and
+iir_bandpass temporal, y_only and rgb chroma — everything the single-chip
+engine serves, except IIR + FRAME sharding (sequential recurrence;
+rejected with a pointer to rows-only meshes).  Tested against the
+unsharded pipeline on the virtual CPU mesh (`tests/test_spatial.py`).
 """
 
 from __future__ import annotations
@@ -67,13 +61,7 @@ def _fft2_local(y_local: jnp.ndarray):
     cols-shard.  Leading dims (frames) batch through."""
     p = _axis_size()
     s = jnp.fft.fft(y_local.astype(jnp.complex64), axis=-1)  # full rows
-    *lead, hl, w = s.shape
-    s = s.reshape(*lead, hl, p, w // p)
-    nd = len(lead)
-    s = jax.lax.all_to_all(s, AXIS, split_axis=nd + 1, concat_axis=nd,
-                           tiled=False)
-    s = s.reshape(*lead, hl * p, w // p)  # (..., H, Wc)
-    return jnp.fft.fft(s, axis=-2)  # full columns
+    return jnp.fft.fft(_a2a_fwd(s, p), axis=-2)  # full columns
 
 
 def _ifft2_local(spec: jnp.ndarray):
@@ -81,13 +69,7 @@ def _ifft2_local(spec: jnp.ndarray):
     result."""
     p = _axis_size()
     s = jnp.fft.ifft(spec, axis=-2)
-    *lead, h, wc = s.shape
-    s = s.reshape(*lead, p, h // p, wc)
-    nd = len(lead)
-    s = jax.lax.all_to_all(s, AXIS, split_axis=nd, concat_axis=nd + 1,
-                           tiled=False)
-    s = s.reshape(*lead, h // p, wc * p)
-    return jnp.fft.ifft(s, axis=-1)
+    return jnp.fft.ifft(_a2a_inv(s, p), axis=-1)
 
 
 def _freqs_local(pad_h: int, pad_w: int):
@@ -151,18 +133,19 @@ def _amplify_local(cur, prev, cfg: MagnifyConfig, pad_h: int, pad_w: int,
 
 def _amplify_local_any(cur, prev, cfg: MagnifyConfig, pad_h: int,
                        pad_w: int, delta_override=None):
-    """Mode dispatch for the sharded amplification (r5 spatial parity):
+    """Mode dispatch for the sharded amplification:
     pyramid (radial/steerable) or the standard whole-spectrum weighted
     rotation (`ProcessPhaseDifference`,
     `PhaseDifferenceComputeShader.compute:124-179`) — the weight w(f)
     evaluated at this shard's global frequencies."""
     if cfg.mode == "standard":
-        from pbmm_tpu.phase.standard import standard_phase_amplify
-        from pbmm_tpu.spectral.fused import _standard_weight_block
+        from pbmm_tpu.phase.standard import (
+            bandpass_weight_jnp,
+            standard_phase_amplify,
+        )
 
         fy, fx = _freqs_local(pad_h, pad_w)
-        freq = jnp.sqrt(fy * fy + fx * fx)
-        weight = _standard_weight_block(freq, cfg)
+        weight = bandpass_weight_jnp(jnp.sqrt(fy * fy + fx * fx), cfg)
         return standard_phase_amplify(
             cur, prev, weight, cfg.phase_scale, cfg.magnitude_threshold,
             cfg.magnitude_scale, cfg.apply_magnitude_scale,
@@ -170,29 +153,6 @@ def _amplify_local_any(cur, prev, cfg: MagnifyConfig, pad_h: int,
         )
     return _amplify_local(cur, prev, cfg, pad_h, pad_w,
                           delta_override=delta_override)
-
-
-def _spatial_pallas_ok(cfg: MagnifyConfig, geom, n_rows: int) -> bool:
-    """Whether the per-shard Pallas kernels serve this spatial config:
-    the same eligibility as the single-chip fused path (pyramid radial /
-    standard, no magnitude-scale quirk) plus shard-tiling divisibility.
-    In interpret mode (CPU tests) the 128-lane tiling constraint is
-    waived (the interpreter has no layout requirement)."""
-    shapes_ok = (
-        geom.pad_h % 128 == 0 and (geom.pad_w // n_rows) % 128 == 0
-    ) or cfg.interpret_pallas
-    # The per-shard kernels are radix-2: non-pow-2 (tight) heights fall
-    # back to the XLA path below, which is exact at any size (the
-    # four-step tight transform lives only in the single-chip chunk
-    # kernel).
-    pow2 = geom.pad_h & (geom.pad_h - 1) == 0 \
-        and geom.pad_w & (geom.pad_w - 1) == 0
-    return (
-        cfg.fft_backend == "pallas"
-        and not cfg.apply_magnitude_scale
-        and shapes_ok
-        and pow2
-    )
 
 
 def _a2a_fwd(x: jnp.ndarray, p: int) -> jnp.ndarray:
@@ -214,71 +174,6 @@ def _a2a_inv(x: jnp.ndarray, p: int) -> jnp.ndarray:
     x = jax.lax.all_to_all(x, AXIS, split_axis=nd, concat_axis=nd + 1,
                            tiled=False)
     return x.reshape(*lead, h // p, wc * p)
-
-
-def _spectral_pallas_local(y_win, prev_from, cfg: MagnifyConfig,
-                           pad_h: int, pad_w: int, tl: int, c: int):
-    """Per-shard Pallas spectral chain (VERDICT r2 weak #6: the spatial
-    engine reusing the fast kernels): local bitrev row-FFT -> all-to-all
-    -> local bitrev col-FFT -> fused phase + col-IFFT (per-lane global
-    frequencies passed as a traced vector) -> all-to-all back -> fused
-    row-IFFT + |z|.  Same math as the XLA `_fft2_local` path, in the
-    hand-scheduled kernels (all log2(N) stages per axis in VMEM, MXU
-    group matmuls, trig-free or polynomial rotation).
-
-    `prev_from(re, im)` maps the local spectra batch to the
-    previous-frame spectra (shifted slice + frame-halo ppermute).
-    `tl`/`c`: local frames and planes per frame (3 for chroma="rgb";
-    planes batch straight through the kernels).  In iir_bandpass mode
-    the lp taps ride this shard's column slice through a scan over local
-    frames (r5 spatial parity; IIR + frame sharding is rejected at
-    dispatch — the recurrence is sequential across frames).
-    """
-    from pbmm_tpu.spectral.fused import phase_col_ifft, row_ifft_magnitude
-    from pbmm_tpu.spectral.pallas_fft import _fft_axis, bitrev_freq_axis
-
-    p = _axis_size()
-    idx = _axis_index()
-    wc = pad_w // p
-    interp = cfg.interpret_pallas
-
-    re, im = _fft_axis(y_win, None, 2, False, 1.0, interp)  # bitrev lanes
-    re, im = _a2a_fwd(re, p), _a2a_fwd(im, p)  # (Tl*c, H, Wc)
-    re, im = _fft_axis(re, im, 1, False, 1.0, interp)  # bitrev cols
-
-    pre, pim = prev_from(re, im)
-
-    # This shard's lanes hold bitrev positions [idx*wc, (idx+1)*wc) of the
-    # full row spectrum; their frequency values are a dynamic slice of the
-    # full bitrev frequency table (idx is traced inside shard_map).
-    fx_full = jnp.asarray(bitrev_freq_axis(pad_w))
-    fx_local = jax.lax.dynamic_slice(fx_full, (idx * wc,), (wc,))
-
-    if cfg.temporal.mode == "iir_bandpass":
-        sh = re.shape[1:]
-        zeros = jnp.zeros((c,) + sh, jnp.float32)
-
-        def step(carry, frame):
-            lpf, lps = carry
-            fre, fim, fpre, fpim = frame
-            rre_t, rim_t, nlpf, nlps = phase_col_ifft(
-                fre, fim, fpre, fpim, cfg, fx_values=fx_local,
-                lp_fast=lpf, lp_slow=lps, interpret=interp,
-            )
-            return (nlpf, nlps), (rre_t, rim_t)
-
-        frames = tuple(a.reshape((tl, c) + sh) for a in (re, im, pre, pim))
-        _, (rre, rim) = jax.lax.scan(step, (zeros, zeros), frames)
-        rre = rre.reshape((tl * c,) + sh)
-        rim = rim.reshape((tl * c,) + sh)
-    else:
-        rre, rim = phase_col_ifft(re, im, pre, pim, cfg,
-                                  fx_values=fx_local, interpret=interp)
-    rre, rim = _a2a_inv(rre, p), _a2a_inv(rim, p)  # (Tl*c, Hl, W)
-    return row_ifft_magnitude(
-        rre, rim, magnitude=(cfg.reconstruct == "magnitude"),
-        pad_h=pad_h, interpret=interp,
-    )
 
 
 def _blur_rowsharded(y: jnp.ndarray, blur_size: float):
@@ -316,30 +211,23 @@ def _blur_rowsharded(y: jnp.ndarray, blur_size: float):
     return sum(taps[k] * stacked[..., k:k + hl, :] for k in range(len(taps)))
 
 
-def _prev_shift(arrs, frame_sharded, c: int = 1):
+def _prev_shift(a, frame_sharded, c: int = 1):
     """Previous-frame spectra: local shift along the frame axis (`c`
     planes per frame — 3 for chroma="rgb" plane-batched streams); the
     boundary frame crosses the frame-shard ring via ppermute.  The global
     first frame pairs with itself (zero delta); its exact passthrough is
-    applied by the caller.  Applies to each array in `arrs` identically
-    (complex spec, or split re/im)."""
-    outs = []
-    if frame_sharded:
-        pf = jax.lax.axis_size(FRAME_AXIS)
-        fidx = jax.lax.axis_index(FRAME_AXIS)
-        ring = [(i, (i + 1) % pf) for i in range(pf)]
-        for a in arrs:
-            recv = jax.lax.ppermute(a[-c:], FRAME_AXIS, ring)
-            first_prev = jnp.where(fidx == 0, a[:c], recv)
-            outs.append(jnp.concatenate([first_prev, a[:-c]], axis=0))
-    else:
-        for a in arrs:
-            outs.append(jnp.concatenate([a[:c], a[:-c]], axis=0))
-    return outs
+    applied by the caller."""
+    if not frame_sharded:
+        return jnp.concatenate([a[:c], a[:-c]], axis=0)
+    pf = jax.lax.axis_size(FRAME_AXIS)
+    fidx = jax.lax.axis_index(FRAME_AXIS)
+    ring = [(i, (i + 1) % pf) for i in range(pf)]
+    recv = jax.lax.ppermute(a[-c:], FRAME_AXIS, ring)
+    first_prev = jnp.where(fidx == 0, a[:c], recv)
+    return jnp.concatenate([first_prev, a[:-c]], axis=0)
 
 
-def _video_kernel(frames_padded, cfg: MagnifyConfig, geom, frame_sharded,
-                  use_pallas):
+def _video_kernel(frames_padded, cfg: MagnifyConfig, geom, frame_sharded):
     """shard_map body: (Tl, Hl, Wp, 3) padded rows(+frame)-shards ->
     magnified rows-shards at padded resolution.
 
@@ -372,42 +260,35 @@ def _video_kernel(frames_padded, cfg: MagnifyConfig, geom, frame_sharded,
         fft_in = yiq[..., 0] * win  # (Tl, Hl, Wp)
     iir = cfg.temporal.mode == "iir_bandpass"
 
-    if use_pallas:
-        out = _spectral_pallas_local(
-            fft_in, lambda re, im: _prev_shift((re, im), frame_sharded, c),
-            cfg, pad_h, pad_w, tl, c,
-        )
-    else:
-        spec = _fft2_local(fft_in)  # (Tl*c, H, Wc)
-        (prev,) = _prev_shift((spec,), frame_sharded, c)
-        delta_override = None
-        if iir:
-            # Sequential IIR band-pass over the per-bin delta stream: the
-            # lp taps ride this shard's column slice through a scan over
-            # LOCAL frames (the frame axis is whole on each shard — IIR +
-            # frame sharding is rejected at dispatch).
-            from pbmm_tpu.phase.amplify import phase_delta
-            from pbmm_tpu.phase.temporal import (
-                TemporalState,
-                temporal_apply,
-                temporal_init,
-            )
+    spec = _fft2_local(fft_in)  # (Tl*c, H, Wc)
+    prev = _prev_shift(spec, frame_sharded, c)
+    delta_override = None
+    if iir:
+        # Sequential IIR band-pass over the per-bin delta stream: the
+        # lp taps ride this shard's column slice through a scan over
+        # LOCAL frames (the frame axis is whole on each shard — IIR +
+        # frame sharding is rejected at dispatch).
+        from pbmm_tpu.phase.amplify import phase_delta
+        from pbmm_tpu.phase.temporal import temporal_apply, temporal_init
 
-            delta = phase_delta(spec, prev).reshape(
-                (tl, c) + spec.shape[1:])
+        delta = phase_delta(spec, prev).reshape(
+            (tl, c) + spec.shape[1:])
 
-            def step(carry, dt):
-                filt, ns = temporal_apply(dt, carry, cfg.temporal)
-                return ns, filt
+        def step(carry, dt):
+            filt, ns = temporal_apply(dt, carry, cfg.temporal)
+            return ns, filt
 
-            init = temporal_init((c,) + spec.shape[1:], cfg.temporal)
-            _, filt = jax.lax.scan(step, init, delta)
-            delta_override = filt.reshape(spec.shape)
-        mod = _amplify_local_any(spec, prev, cfg, pad_h, pad_w,
-                                 delta_override=delta_override)
-        rec = _ifft2_local(mod)  # (Tl*c, Hl, Wp) complex
-        out = (jnp.abs(rec) if cfg.reconstruct == "magnitude"
-               else jnp.real(rec))
+        # The zero initial taps vary over the mesh like the deltas do.
+        init = jax.lax.pcast(
+            temporal_init((c,) + spec.shape[1:], cfg.temporal),
+            (FRAME_AXIS, AXIS) if frame_sharded else (AXIS,), to="varying")
+        _, filt = jax.lax.scan(step, init, delta)
+        delta_override = filt.reshape(spec.shape)
+    mod = _amplify_local_any(spec, prev, cfg, pad_h, pad_w,
+                             delta_override=delta_override)
+    rec = _ifft2_local(mod)  # (Tl*c, Hl, Wp) complex
+    out = (jnp.abs(rec) if cfg.reconstruct == "magnitude"
+           else jnp.real(rec))
     out = _blur_rowsharded(out, cfg.blur_size)
 
     if rgb:
@@ -420,8 +301,8 @@ def _video_kernel(frames_padded, cfg: MagnifyConfig, geom, frame_sharded,
 
 
 def _validate(cfg: MagnifyConfig, mesh: Mesh = None):
-    """r5 spatial parity: the sharded engine accepts everything the
-    single-chip engine accepts — pyramid (radial/steerable) AND standard
+    """The sharded engine accepts everything the single-chip engine
+    accepts — pyramid (radial/steerable) AND standard
     mode, two-frame AND iir_bandpass temporal, y_only AND rgb chroma —
     except the one genuinely sequential-conflicting combination: IIR
     temporal with FRAME sharding (the lp recurrence is strictly
@@ -445,7 +326,6 @@ def _spatial_video_fn(cfg: MagnifyConfig, mesh: Mesh, in_h: int, in_w: int):
     if geom.pad_h % n_rows or geom.pad_w % n_rows:
         raise ValueError("padded dims must divide the rows-mesh size")
 
-    use_pallas = _spatial_pallas_ok(cfg, geom, n_rows)
     pspec = (P(FRAME_AXIS, AXIS, None, None) if frame_sharded
              else P(None, AXIS, None, None))
     sharding = NamedSharding(mesh, pspec)
@@ -464,14 +344,10 @@ def _spatial_video_fn(cfg: MagnifyConfig, mesh: Mesh, in_h: int, in_w: int):
         )
         padded = jax.lax.with_sharding_constraint(padded, sharding)
         body = shard_map(
-            lambda fr: _video_kernel(fr, cfg, geom, frame_sharded,
-                                     use_pallas),
+            lambda fr: _video_kernel(fr, cfg, geom, frame_sharded),
             mesh=mesh,
             in_specs=(pspec,),
             out_specs=pspec,
-            # pallas_call outputs carry no varying-mesh-axes metadata;
-            # replication checking is meaningless for them.
-            check_vma=False,
         )
         out = body(padded)[:, geom.y0:geom.y0 + h, geom.x0:geom.x0 + w]
         # Global first frame passes through unmodified
@@ -490,9 +366,6 @@ def magnify_video_spatial(frames, cfg: MagnifyConfig, mesh: Mesh):
     size.  Two-frame mode; each frame's FFT computed exactly once.
     """
     _validate(cfg, mesh)
-    from pbmm_tpu.spectral.pallas_fft import set_gm_precision
-
-    set_gm_precision(cfg.gm_precision)
     frames = jnp.asarray(frames)
     if not cfg.apply_motion_magnification:
         return frames.astype(jnp.float32)

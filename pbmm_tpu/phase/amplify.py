@@ -1,4 +1,4 @@
-"""Pyramid-mode phase-difference amplification — the fused TPU formulation.
+"""Pyramid-mode phase-difference amplification — the fused formulation.
 
 Reference semantics (per band i, per bin):
     cur_i = cur * m_i; prev_i = prev * m_i          (`PyramidOperations.compute:90-108`)
@@ -8,7 +8,7 @@ Reference semantics (per band i, per bin):
                                          (`PyramidPhaseDifference.compute:58-101`)
     result = sum_i out_i                 (`PyramidOperations.compute:111-128`)
 
-TPU-first fusion: every mask m_i is real and non-negative, so
+Fusion: every mask m_i is real and non-negative, so
 arg(z * m_i) = arg(z) wherever m_i > 0 — the per-band phase delta is
 *independent of the band*.  The whole L-band loop therefore collapses to a
 single elementwise pass:
@@ -19,13 +19,13 @@ single elementwise pass:
     result = cur * (P + E * exp(1j * phase_scale * delta))
 
 This replaces the reference's 10 filter applies + 5 phase kernels + 6
-accumulator dispatches per frame (SURVEY.md §3.2) with one VPU-friendly pass,
+accumulator dispatches per frame (SURVEY.md §3.2) with one elementwise pass,
 and is exactly equal in infinite precision (`pyramid_phase_amplify_naive`
 reproduces the literal band loop; tests assert agreement).  Where m_i = 0 both
 formulations contribute cur * 0.
 
 An optional temporal filter transforms the raw delta stream before
-amplification (TPU extension; `temporal.py`).
+amplification (extension; `temporal.py`).
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def rotation_term(
     """exp(1j * phase_scale * wrap(arg(prev) - arg(cur))) — trig-free when
     phase_scale is a (small) integer: e^{i*s*(delta - 2*pi*k)} = e^{i*s*delta}
     for integer s, so (prev*conj(cur)/|.|)^s is exact, replacing
-    atan2 + sincos (the VPU's expensive transcendentals) with one rsqrt and
+    atan2 + sincos (expensive transcendentals) with one rsqrt and
     a handful of complex multiplies."""
     s = float(phase_scale)
     if delta_override is None and s.is_integer() and 0 <= s <= 64:
@@ -151,10 +151,10 @@ def pyramid_phase_amplify_procedural(
 
     Why: at the reference's 2048^2 working set, explicit masks are 84 MB of
     constants baked into the executable and re-read from HBM every frame;
-    the profiles are a handful of VPU ops that XLA fuses into the pass, so
-    per-frame HBM traffic drops to the spectra themselves (SURVEY.md §7.3
-    "fusing ... the band multiply to avoid HBM round-trips").
-    """
+    the profiles are a handful of elementwise ops that XLA fuses into the
+    pass, so per-frame HBM traffic drops to the spectra themselves
+    (SURVEY.md §7.3 "fusing ... the band multiply to avoid HBM
+    round-trips")."""
     from pbmm_tpu.pyramid.filters import procedural_mask_planes
 
     pad_h = cur.shape[-2]

@@ -59,15 +59,12 @@ def _weight_map_np(
     return w.astype(np.float32)
 
 
-def bandpass_weight_map_jnp(pad_h: int, pad_w: int, cfg,
-                            layout: str = "centered") -> jnp.ndarray:
-    """Procedural (on-device, constant-free) form of `bandpass_weight_map`;
-    same math, computed from iota so it fuses into the phase pass instead of
-    shipping/reading a (H, W) constant.  `layout="rfft"` evaluates the same
-    radial weight on the natural half-spectrum grid."""
-    from pbmm_tpu.pyramid.filters import freq_grid_jnp
-
-    f = jnp.minimum(freq_grid_jnp(pad_h, pad_w, layout) / 0.707, 1.0)
+def bandpass_weight_jnp(freq: jnp.ndarray, cfg) -> jnp.ndarray:
+    """w(f) as an elementwise function of the radial frequency `freq`, on
+    device — same math as `_weight_map_np`, so it fuses into the phase
+    pass instead of shipping/reading a (H, W) constant.  Any spectrum
+    layout or shard evaluates it on its own frequency grid."""
+    f = jnp.minimum(freq / 0.707, 1.0)
     if not cfg.apply_bandpass:
         return jnp.ones_like(f)
     steep = cfg.filter_steepness
@@ -100,6 +97,16 @@ def bandpass_weight_map_jnp(pad_h: int, pad_w: int, cfg,
         w,
     )
     return jnp.maximum(w, 0.0)
+
+
+def bandpass_weight_map_jnp(pad_h: int, pad_w: int, cfg,
+                            layout: str = "centered") -> jnp.ndarray:
+    """Procedural form of `bandpass_weight_map` on a (pad_h, pad_w) grid;
+    `layout="rfft"` evaluates the same radial weight on the natural
+    half-spectrum grid."""
+    from pbmm_tpu.pyramid.filters import freq_grid_jnp
+
+    return bandpass_weight_jnp(freq_grid_jnp(pad_h, pad_w, layout), cfg)
 
 
 def bandpass_weight_map(pad_h: int, pad_w: int, cfg) -> jnp.ndarray:

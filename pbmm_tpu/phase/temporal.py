@@ -1,4 +1,4 @@
-"""Streaming temporal filtering of phase deltas (TPU extension).
+"""Streaming temporal filtering of phase deltas (extension).
 
 The reference's temporal model is exactly a two-frame delta — the `fir=[1]`
 special case of filtering the delta stream (SURVEY.md §5 "long-context"
@@ -9,7 +9,7 @@ first-order low-pass y += r (x - y) — the classic realtime Eulerian video
 magnification filter pair.
 
 State is a pytree of f32 arrays only (complex is kept out of public/jit
-boundaries because some TPU runtimes cannot transfer complex64 host<->device).
+boundaries, so checkpoints hold plain float arrays).
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ regenerated by `OnValidate`, `MotionMagnificationProcessor.cs:78-88`).
 The reference bank is *radial only* — no angular/orientation component
 (SURVEY.md §2.2) — and intentionally does not tile to unity (gaps between the
 high-pass ramp and the band edges => imperfect reconstruction; reproduced
-bit-for-bit by `radial_filter_bank`).  `steerable_filter_bank` is the TPU
+bit-for-bit by `radial_filter_bank`).  `steerable_filter_bank` is this
 build's extension: each mid band is additionally split into K angular
 sectors by a partition-of-unity cos^(2(K-1)) window, which leaves every
 radial sum unchanged (so K=0 and K>0 collapse identically when no phase
@@ -137,9 +137,6 @@ def freq_axes_jnp(pad_h: int, pad_w: int, layout: str = "centered"):
     centered value ((ky + H/2) % H)/H - 0.5 and columns are kx/W for
     kx in [0, W/2]; radii match the centered grid bin-for-bin under the
     Hermitian mirror (all filters are even in k).
-    layout "bitrev2d": both axes in bit-reversed frequency order (the
-    Pallas FFT backend's working layout, `spectral/pallas_fft.py`) — a
-    pure relabeling of the same frequencies.
     """
     if layout == "centered":
         fy = jnp.arange(pad_h, dtype=jnp.float32) / pad_h - 0.5
@@ -148,17 +145,6 @@ def freq_axes_jnp(pad_h: int, pad_w: int, layout: str = "centered"):
         ky = (jnp.arange(pad_h, dtype=jnp.int32) + pad_h // 2) % pad_h
         fy = ky.astype(jnp.float32) / pad_h - 0.5
         fx = jnp.arange(pad_w // 2 + 1, dtype=jnp.float32) / pad_w
-    elif layout == "bitrev2d":
-        from pbmm_tpu.spectral.pallas_fft import bitrev_freq_axis
-
-        fy = jnp.asarray(bitrev_freq_axis(pad_h))
-        fx = jnp.asarray(bitrev_freq_axis(pad_w))
-    elif layout == "natural":
-        # Unshifted DFT order: value k/N for k < N/2 else k/N - 1.
-        ky = jnp.arange(pad_h, dtype=jnp.float32) / pad_h
-        kx = jnp.arange(pad_w, dtype=jnp.float32) / pad_w
-        fy = jnp.where(ky < 0.5, ky, ky - 1.0)
-        fx = jnp.where(kx < 0.5, kx, kx - 1.0)
     else:
         raise ValueError(f"unknown spectrum layout: {layout!r}")
     return fy[:, None], fx[None, :]
@@ -187,12 +173,9 @@ def radial_level_params(levels: int, min_f: float, max_f: float):
     mid bands raised-cosine over [c/2, 3c/2] with geometric center
     spacing; L=3 hits the NaN-ratio quirk -> all-zero mid mask).
 
-    Every evaluator — the XLA procedural profile below, the Pallas
-    mask kernels (`phase/pallas_kernels.py`), and the fused spectral
-    kernel (`spectral/fused.py`) — derives its lo/hi/center from HERE, so
-    a drift in one cannot silently pass the other test families
-    (VERDICT r2 weak #10).  Only the elementwise evaluation (hardware
-    cos vs polynomial cos) differs per backend.
+    Every evaluator — the procedural profile below and the sharded
+    engine's per-shard masks — derives its lo/hi/center from HERE, so a
+    drift in one cannot silently pass the other test families.
     """
     lo_f, hi_f = float(min_f), float(max_f)
     out = []
@@ -211,30 +194,6 @@ def radial_level_params(levels: int, min_f: float, max_f: float):
     return tuple(out)
 
 
-def radial_profile_from_params(freq, kind: str, lo: float, hi: float,
-                               smoothstep=_smoothstep_jnp,
-                               cos=jnp.cos):
-    """Evaluate one level's mask from its `radial_level_params` entry.
-    `smoothstep`/`cos` are injectable so Mosaic kernels can substitute
-    polynomial evaluators while sharing the identical ramp topology."""
-    if kind == "zero":
-        return jnp.zeros_like(freq)
-    if kind == "high":
-        return jnp.where(
-            freq > hi, 1.0,
-            jnp.where(freq > lo, smoothstep((freq - lo) / (hi - lo)), 0.0),
-        )
-    if kind == "low":
-        return jnp.where(
-            freq < lo, 1.0,
-            jnp.where(freq < hi,
-                      1.0 - smoothstep((freq - lo) / (hi - lo)), 0.0),
-        )
-    t = (freq - lo) / (hi - lo)
-    band = 0.5 * (1.0 + cos(2.0 * jnp.pi * (t - 0.5)))
-    return jnp.where((freq >= lo) & (freq <= hi), band, 0.0)
-
-
 def radial_profile_jnp(freq: jnp.ndarray, i: int, levels: int,
                        min_f: float, max_f: float) -> jnp.ndarray:
     """Level-i mask value as an elementwise function of radius — the
@@ -242,7 +201,23 @@ def radial_profile_jnp(freq: jnp.ndarray, i: int, levels: int,
     Exact same math as `GeneratePyramidFilters`
     (`PyramidOperations.compute:25-87`)."""
     kind, lo, hi, _ = radial_level_params(levels, min_f, max_f)[i]
-    return radial_profile_from_params(freq, kind, lo, hi)
+    if kind == "zero":
+        return jnp.zeros_like(freq)
+    if kind == "high":
+        return jnp.where(
+            freq > hi, 1.0,
+            jnp.where(freq > lo, _smoothstep_jnp((freq - lo) / (hi - lo)),
+                      0.0),
+        )
+    if kind == "low":
+        return jnp.where(
+            freq < lo, 1.0,
+            jnp.where(freq < hi,
+                      1.0 - _smoothstep_jnp((freq - lo) / (hi - lo)), 0.0),
+        )
+    t = (freq - lo) / (hi - lo)
+    band = 0.5 * (1.0 + jnp.cos(2.0 * jnp.pi * (t - 0.5)))
+    return jnp.where((freq >= lo) & (freq <= hi), band, 0.0)
 
 
 def angular_profiles_jnp(pad_h: int, pad_w: int, orientations: int,

@@ -4,13 +4,10 @@ from pbmm_tpu.spectral.fft import (
     irfft2_half,
     rfft2_half,
 )
-from pbmm_tpu.spectral.pallas_fft import fft2_bitrev, ifft2_bitrev
 
 __all__ = [
     "fft2_centered",
     "ifft2_centered",
     "rfft2_half",
     "irfft2_half",
-    "fft2_bitrev",
-    "ifft2_bitrev",
 ]

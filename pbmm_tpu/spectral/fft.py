@@ -2,9 +2,9 @@
 
 The reference implements a hand-sequenced radix-2 DIT FFT as ~29 GPU
 dispatches per transform (`Assets/Shaders/FFT.compute`, driven by
-`MotionMagnificationProcessor.cs:508-620`).  On TPU the idiomatic equivalent
-is XLA's native FFT op, which is already a tiled, fused, on-chip
-implementation — re-implementing radix-2 butterfly *passes* one-at-a-time
+`MotionMagnificationProcessor.cs:508-620`).  Here the idiomatic equivalent
+is XLA's native FFT op (cuFFT on an NVIDIA GPU), a tuned library
+transform — re-implementing radix-2 butterfly *passes* one-at-a-time
 would round-trip HBM log2(N) times and be strictly slower (SURVEY.md §7.3).
 
 DC-centering conventions (proved equivalent for even N, which power-of-two
@@ -29,7 +29,7 @@ def _collapsed(fn, x):
     Works around an XLA CPU fft-thunk RET_CHECK
     (`LayoutUtil::IsMonotonicWithDim0Major`) hit when a >3-D FFT operand
     inherits a non-dim0-major layout under sharding; the reshape pins a
-    standard layout.  On TPU the reshape is a free bitcast.
+    standard layout.  On a dense row-major array the reshape is free.
     """
     if x.ndim <= 3:
         return fn(x)

@@ -4,8 +4,8 @@
 
 Prints one JSON line per configuration with PSNR/SSIM against
 `oracle/reference.py` (the executable transcription of the Unity/HLSL
-math).  The BASELINE contract is >= 35 dB (BASELINE.md); the implementation
-typically lands >140 dB on TPU hardware.
+math).  The BASELINE contract is >= 35 dB (BASELINE.md); on the CPU the
+f32 implementation lands above 130 dB.
 """
 
 from __future__ import annotations

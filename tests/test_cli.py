@@ -23,7 +23,7 @@ def test_cli_magnifies_npy(tmp_path):
 
 def test_cli_demo_and_scan_engine(tmp_path):
     outp = tmp_path / "out.npz"
-    rc = main(["--demo", "blob", "--output", str(outp), "--engine", "scan"])
+    rc = main(["--demo", "blob", "--output", str(outp)])
     assert rc == 0
     out = load_video(str(outp))
     assert out.ndim == 4
@@ -46,8 +46,7 @@ def test_cli_checkpoint_roundtrip(tmp_path):
     whole = tmp_path / "whole.npy"
     outw = tmp_path / "ow.npy"
     np.save(whole, clip)
-    assert main(["--input", str(whole), "--output", str(outw),
-                 "--engine", "scan"]) == 0
+    assert main(["--input", str(whole), "--output", str(outw)]) == 0
     np.testing.assert_allclose(resumed, np.load(outw), atol=1e-5)
 
 
@@ -79,13 +78,13 @@ def test_cli_quirk_and_backend_flags(tmp_path):
     from pbmm_tpu.cli import build_parser, config_from_args
 
     args = build_parser().parse_args(
-        ["--output", "o.npy", "--fft-backend", "pallas", "--blur-size",
+        ["--output", "o.npy", "--fft-backend", "mxu", "--blur-size",
          "0.75", "--compensate-window", "--no-cache-prev-spectrum",
          "--apply-magnitude-scale", "--magnitude-scale", "1.5",
          "--yiq-gains", "1.1", "0.9", "1.0"]
     )
     cfg = config_from_args(args)
-    assert cfg.fft_backend == "pallas" and cfg.use_rfft is False
+    assert cfg.fft_backend == "mxu" and cfg.use_rfft is True
     assert cfg.blur_size == 0.75
     assert cfg.compensate_window is True
     assert cfg.cache_prev_spectrum is False

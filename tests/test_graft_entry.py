@@ -2,12 +2,13 @@
 a virtual device mesh."""
 
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import __graft_entry__ as ge  # noqa: E402
 
 
@@ -27,3 +28,8 @@ def test_dryrun_multichip_8():
 @pytest.mark.skipif(jax.device_count() < 2, reason="needs 2 devices")
 def test_dryrun_multichip_2():
     ge.dryrun_multichip(2)
+
+
+def test_dryrun_multichip_needs_the_devices():
+    with pytest.raises(RuntimeError, match="needs 64 devices"):
+        ge.dryrun_multichip(64)

@@ -1,4 +1,4 @@
-"""End-to-end parity: the jitted TPU pipeline vs the numpy oracle
+"""End-to-end parity: the jitted pipeline vs the numpy oracle
 (SURVEY.md §4b; BASELINE config 1 — 128x128 oscillating bar).
 
 The contract is PSNR-based, not bit-exact (fp32 atan2/sincos ULP differences
@@ -58,19 +58,13 @@ class TestPairParity:
             MagnifyConfig(orientations=8, pyramid_levels=4)) > 55.0
 
     def test_steerable_fused_kernel_vs_oracle_256(self):
-        # The r4 in-kernel steerable fast path (sector windows evaluated
-        # inside the fused phase/col-IFFT kernel, `spectral/fused.py::
-        # _sector_weights`) against the independent fp64 oracle at 256 px
-        # (measures 150 dB on CPU interpret; thresholded at 100).
+        # The steerable path (sector windows evaluated procedurally inside
+        # the fused phase pass) against the independent fp64 oracle at
+        # 256 px.
         frames = oscillating_bar(size=256, frames=4)
         fn = jax.jit(magnify_frame_pair, static_argnums=2)
         for k_or, levels in ((4, 5), (8, 4)):
-            cfg = MagnifyConfig(
-                orientations=k_or, pyramid_levels=levels,
-                fft_backend="pallas", use_rfft=False,
-                use_fused_spectral=True, use_hermitian_spectral=True,
-                interpret_pallas=True,
-            )
+            cfg = MagnifyConfig(orientations=k_or, pyramid_levels=levels)
             got = np.asarray(fn(frames[2], frames[3], cfg))
             want = oracle_magnify_pair(frames[2], frames[3], cfg)
             assert psnr(got, want) > 100.0, (k_or, levels)
@@ -126,42 +120,6 @@ class TestVideoParity:
         chunked = np.concatenate([np.asarray(first), np.asarray(rest)])
         np.testing.assert_allclose(chunked, np.asarray(whole), atol=1e-5)
 
-    def test_engine_config_batched_equals_scan(self):
-        # The engine select is a CONFIG field (static, hashed,
-        # checkpointed — VERDICT r3 item 5), not an env var: the two
-        # engines compute identical math on a config where the batched
-        # engine is actually eligible (fused spectral path).
-        base = MagnifyConfig(
-            fft_backend="pallas", use_rfft=False, use_fused_spectral=True,
-            interpret_pallas=True,
-        )
-        from pbmm_tpu.engine.video import _colspec_ok
-
-        assert _colspec_ok(base, FRAMES.shape)
-        out_b, _ = magnify_video(FRAMES, base.replace(engine="batched"))
-        out_s, _ = magnify_video(FRAMES, base.replace(engine="scan"))
-        assert psnr(np.asarray(out_b), np.asarray(out_s)) > 80.0
-
-    def test_engine_config_validation(self):
-        import pytest as _pytest
-
-        with _pytest.raises(ValueError):
-            MagnifyConfig(engine="warp")
-
-    def test_grouped_stream_g2_and_ungrouped_tails(self):
-        # Chunk sizes exercise all three pair-stream layouts: t=6 -> G=2
-        # group, t=5 -> per-frame stream, t=8 -> G=4; all must agree with
-        # the scan engine.
-        cfg = MagnifyConfig(
-            fft_backend="pallas", use_rfft=False, use_fused_spectral=True,
-            use_hermitian_spectral=True, interpret_pallas=True,
-        )
-        for t in (6, 7):  # bootstrap consumes frame 0 -> chunks of 5, 6
-            frames = oscillating_bar(size=128, frames=t, bar_width=2)
-            out_b, _ = magnify_video(frames, cfg)
-            out_s, _ = magnify_video(frames, cfg.replace(engine="scan"))
-            assert psnr(np.asarray(out_b), np.asarray(out_s)) > 100.0, t
-
     def test_uint8_ingestion(self):
         # 8-bit frames are first-class (r4): scaled by 1/255 on device
         # (`core.color.unit_float`), quartering host->device transfer for
@@ -176,25 +134,6 @@ class TestVideoParity:
         byp, _ = magnify_video(
             f_u8, MagnifyConfig(apply_motion_magnification=False))
         assert float(np.asarray(byp).max()) <= 1.0 + 1e-5
-
-    def test_chroma_rgb_batched_engine(self):
-        # The r4 chroma="rgb" channels-last fast path: all three YIQ
-        # planes FFT-bound through the pair-offset stream (plane-minor
-        # frame-major), vs the scan engine (bit-identical) and the
-        # generic XLA pipeline.
-        cfg = MagnifyConfig(
-            chroma="rgb", fft_backend="pallas", use_rfft=False,
-            use_fused_spectral=True, interpret_pallas=True,
-        )
-        from pbmm_tpu.engine.video import _colspec_ok
-
-        assert _colspec_ok(cfg, FRAMES.shape)
-        out_b, _ = magnify_video(FRAMES, cfg)
-        out_s, _ = magnify_video(FRAMES, cfg.replace(engine="scan"))
-        gen, _ = magnify_video(FRAMES, MagnifyConfig(chroma="rgb"))
-        assert psnr(np.asarray(out_b), np.asarray(out_s)) > 130.0
-        assert psnr(np.asarray(out_b), np.asarray(gen)) > 80.0
-
 
 class TestExtensions:
     def test_chroma_rgb_runs(self):
@@ -323,30 +262,3 @@ class TestRfftPath:
         out_f, _ = magnify_video(FRAMES, MagnifyConfig(use_rfft=False,
                                                        temporal=tc))
         assert psnr(np.asarray(out_r), np.asarray(out_f)) > 70.0
-
-    def test_pallas_with_rfft_rejected(self):
-        import pytest as _pytest
-
-        with _pytest.raises(ValueError, match="use_rfft"):
-            MagnifyConfig(use_pallas=True)
-
-
-def test_gm_precision_config_field():
-    """advisor r4: the MXU matmul precision is a hashed config field, not
-    only an env var; 'highest' must agree with the default 'b3' far above
-    the parity target."""
-    import numpy as np
-    import pytest as _pytest
-
-    from pbmm_tpu.oracle.synthetic import oscillating_bar
-    from pbmm_tpu.utils.metrics import psnr
-
-    with _pytest.raises(ValueError, match="gm_precision"):
-        MagnifyConfig(gm_precision="fast")
-
-    frames = oscillating_bar(size=128, frames=3, bar_width=2)
-    base = MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(
-        interpret_pallas=True)
-    out_b3, _ = magnify_video(frames, base.replace(gm_precision="b3"))
-    out_hi, _ = magnify_video(frames, base.replace(gm_precision="highest"))
-    assert psnr(np.asarray(out_b3), np.asarray(out_hi)) > 60

@@ -1,13 +1,10 @@
-"""Planar / uint8 ingestion-emission paths (r5, VERDICT r4 ask 3).
+"""Planar / uint8 ingestion-emission paths.
 
 Input may be (T, 3, H, W) channel-planar uint8 (the y4m/video-file
-native layout): the Y slab is a plane-wise FMA and the post kernel
-derives the original-chroma I/Q from the uint8 planes in VMEM — the f32
-I/Q planes never exist.  `output_layout` selects interleaved f32 (the
-reference texture contract), planar f32, or planar uint8 — the planar
-layouts are written directly by the post kernel (no interleave pass).
+native layout).  `output_layout` selects interleaved f32 (the reference
+texture contract), planar f32, or planar uint8.
 
-All paths are bit-exact vs the classic interleaved-f32 path (u8 output:
+All paths are bit-exact vs the classic interleaved path (u8 output:
 exact after the same round(255 x) quantization).
 """
 
@@ -32,8 +29,7 @@ def rng():
 
 
 def _cfg():
-    return MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(
-        interpret_pallas=True)
+    return MagnifyConfig(phase_scale=10.0)
 
 
 class TestPlanarInput:
@@ -59,12 +55,11 @@ class TestPlanarInput:
         np.testing.assert_array_equal(got, np.asarray(ref))
 
     def test_planar_scan_fallback(self, clips):
-        # Non-colspec engines take planar input through the conversion
-        # path — same results.
+        # Planar f32 input takes the same conversion path as planar u8.
         inter, planar = clips
-        cfg = _cfg().replace(engine="scan")
-        ref, _ = magnify_video(inter, cfg)
-        out, _ = magnify_video(planar, cfg)
+        cfg = _cfg()
+        ref, _ = magnify_video(inter.astype(np.float32) / 255.0, cfg)
+        out, _ = magnify_video(planar.astype(np.float32) / 255.0, cfg)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                    atol=1e-6)
 
@@ -118,55 +113,3 @@ class TestOutputLayout:
         out, _ = magnify_video(planar, cfg)
         assert out.dtype == np.uint8
         np.testing.assert_array_equal(np.asarray(out), planar)
-
-
-class TestU8IngestKernel:
-    """The r5 u8 row-FFT ingestion kernel (`windowed_row_fft_u8planar`):
-    Y FMA + 1/255 + center pad + Hann inside the kernel, two-block
-    input halo for the pad-row offset.  Needs x0 > 0 to engage the full
-    u8 chroma post path, so these run at 300x384 (pad 384x512, x0=64)."""
-
-    @pytest.fixture
-    def clips384(self, rng):
-        base = (rng.random((300, 384, 3)) * 255).astype(np.uint8)
-        inter = np.stack([np.roll(base, i, axis=1) for i in range(5)])
-        return inter, np.moveaxis(inter, -1, 1).copy()
-
-    def _engaged(self, cfg, planar):
-        from pbmm_tpu.engine.pipeline import preprocess_cl
-
-        re, im, i_pl, q_pl = preprocess_cl(planar, cfg,
-                                           through_col=False,
-                                           want_iq=False)
-        return i_pl is None
-
-    @pytest.mark.parametrize("pad_mode", ["tight", "square_pow2"])
-    def test_bit_identical_to_classic_path(self, clips384, pad_mode):
-        inter, planar = clips384
-        cfg = MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(
-            interpret_pallas=True, pad_mode=pad_mode)
-        assert self._engaged(cfg, planar)
-        ref, _ = magnify_video(inter, cfg)
-        out, _ = magnify_video(planar, cfg)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    def test_iir_bit_identical(self, clips384):
-        inter, planar = clips384
-        cfg = MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(
-            interpret_pallas=True, pad_mode="tight",
-            temporal=TemporalConfig(mode="iir_bandpass"))
-        ref, st_r = magnify_video(inter, cfg)
-        out, st_o = magnify_video(planar, cfg)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-        np.testing.assert_array_equal(np.asarray(st_o.temporal.lp_fast),
-                                      np.asarray(st_r.temporal.lp_fast))
-
-    def test_chunk_threading_bit_exact(self, clips384):
-        inter, planar = clips384
-        cfg = MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(
-            interpret_pallas=True, pad_mode="tight")
-        whole, _ = magnify_video(planar, cfg)
-        o1, s = magnify_video(planar[:2], cfg)
-        o2, _ = magnify_video(planar[2:], cfg, s)
-        got = np.concatenate([np.asarray(o1), np.asarray(o2)])
-        np.testing.assert_array_equal(got, np.asarray(whole))

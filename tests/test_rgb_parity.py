@@ -29,8 +29,7 @@ def _clip():
 
 
 def _cfg(**kw):
-    return MagnifyConfig(phase_scale=10.0, **kw).tuned_for_tpu().replace(
-        interpret_pallas=True)
+    return MagnifyConfig(phase_scale=10.0, **kw)
 
 
 def test_rgb_parity_equals_y_only_parity():

@@ -99,50 +99,27 @@ class TestVideoSpatial:
         out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
         np.testing.assert_allclose(out[0], frames[0], atol=1e-6)
 
-    def test_video_pallas_kernels_match_unsharded(self):
-        """Per-shard Pallas kernels (bitrev row/col FFT + fused
-        phase/col-IFFT with traced shard frequencies + row-IFFT+|z|)
-        under the rows mesh vs the unsharded XLA engine."""
-        from pbmm_tpu.engine.video import magnify_video
-        from pbmm_tpu.parallel.spatial import (
-            _spatial_pallas_ok,
-            magnify_video_spatial,
-        )
-        from pbmm_tpu.core.window import geometry_for
-
-        frames = oscillating_bar(size=64, frames=4, bar_width=2)
-        cfg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
-                            interpret_pallas=True)
-        assert _spatial_pallas_ok(cfg, geometry_for(64, 64), 4)
-        out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
-        want, _ = magnify_video(frames, MagnifyConfig(use_rfft=False))
-        assert psnr(out, np.asarray(want)) > 70.0
-
-    def test_video_pallas_steerable_match_unsharded(self):
-        """Steerable orientations through the spatial engine (r4: the
-        per-shard Pallas kernels and the XLA fallback both carry the
-        sector windows at the shard's global frequencies)."""
+    def test_video_steerable_matches_unsharded(self):
+        """Steerable orientations through the spatial engine: the sector
+        windows evaluated at each shard's global frequencies."""
         from pbmm_tpu.engine.video import magnify_video
         from pbmm_tpu.parallel.spatial import magnify_video_spatial
 
         frames = oscillating_bar(size=64, frames=4, bar_width=2)
-        cfg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
-                            orientations=4, interpret_pallas=True)
+        cfg = MagnifyConfig(use_rfft=False, orientations=4)
         out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
-        want, _ = magnify_video(
-            frames, MagnifyConfig(use_rfft=False, orientations=4))
+        want, _ = magnify_video(frames, cfg)
         assert psnr(out, np.asarray(want)) > 70.0
 
-    def test_video_pallas_frame_x_rows_mesh(self):
+    def test_video_standard_frame_x_rows_mesh(self):
         from pbmm_tpu.engine.video import magnify_video
         from pbmm_tpu.parallel.spatial import magnify_video_spatial
 
         frames = oscillating_bar(size=64, frames=8, bar_width=2)
-        cfg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
-                            interpret_pallas=True)
-        mesh = self._make_2d_mesh(2, 4)
-        out = np.asarray(magnify_video_spatial(frames, cfg, mesh))
-        want, _ = magnify_video(frames, MagnifyConfig(use_rfft=False))
+        cfg = MagnifyConfig(use_rfft=False, mode="standard")
+        out = np.asarray(
+            magnify_video_spatial(frames, cfg, self._make_2d_mesh(2, 4)))
+        want, _ = magnify_video(frames, cfg)
         assert psnr(out, np.asarray(want)) > 70.0
 
     def test_video_rejects_unsplittable_frames(self):
@@ -155,9 +132,8 @@ class TestVideoSpatial:
 
 
 class TestSpatialParityR5:
-    """r5 spatial-engine parity: standard mode, IIR temporal, rgb chroma
-    through the sharded engine vs the unsharded pipeline (VERDICT r4
-    ask 8)."""
+    """Spatial-engine parity: standard mode, IIR temporal, rgb chroma
+    through the sharded engine vs the unsharded pipeline."""
 
     def test_standard_mode_xla(self):
         from pbmm_tpu.engine.video import magnify_video
@@ -167,19 +143,6 @@ class TestSpatialParityR5:
         cfg = MagnifyConfig(use_rfft=False, mode="standard")
         out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
         want, _ = magnify_video(frames, cfg)
-        assert psnr(out, np.asarray(want)) > 70.0
-
-    def test_standard_mode_pallas(self):
-        from pbmm_tpu.engine.video import magnify_video
-        from pbmm_tpu.parallel.spatial import magnify_video_spatial
-
-        frames = oscillating_bar(size=64, frames=4, bar_width=2)
-        cfg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
-                            mode="standard", interpret_pallas=True)
-        out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
-        want, _ = magnify_video(frames,
-                                MagnifyConfig(use_rfft=False,
-                                              mode="standard"))
         assert psnr(out, np.asarray(want)) > 70.0
 
     def test_iir_rows_mesh_xla(self):
@@ -192,22 +155,6 @@ class TestSpatialParityR5:
                             temporal=TemporalConfig(mode="iir_bandpass"))
         out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
         want, _ = magnify_video(frames, cfg)
-        assert psnr(out, np.asarray(want)) > 70.0
-
-    def test_iir_rows_mesh_pallas(self):
-        from pbmm_tpu.config import TemporalConfig
-        from pbmm_tpu.engine.video import magnify_video
-        from pbmm_tpu.parallel.spatial import magnify_video_spatial
-
-        frames = oscillating_bar(size=64, frames=6, bar_width=2)
-        cfg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
-                            interpret_pallas=True,
-                            temporal=TemporalConfig(mode="iir_bandpass"))
-        out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
-        want, _ = magnify_video(
-            frames, MagnifyConfig(
-                use_rfft=False,
-                temporal=TemporalConfig(mode="iir_bandpass")))
         assert psnr(out, np.asarray(want)) > 70.0
 
     def test_rgb_chroma_xla(self):
@@ -233,24 +180,17 @@ class TestSpatialParityR5:
         assert psnr(out, np.asarray(want)) > 70.0
 
     def test_tight_geometry_takes_xla_path(self):
-        """Non-pow-2 (tight) heights must NOT reach the radix-2 per-shard
-        Pallas kernels (silent garbage); they fall back to the exact XLA
-        path."""
+        """Non-pow-2 (tight) heights through the sharded FFT (rows split
+        across 4 shards) match the unsharded engine."""
         from pbmm_tpu.core.window import geometry_for
         from pbmm_tpu.engine.video import magnify_video
-        from pbmm_tpu.parallel.spatial import (
-            _spatial_pallas_ok,
-            magnify_video_spatial,
-        )
+        from pbmm_tpu.parallel.spatial import magnify_video_spatial
 
         frames = oscillating_bar(size=256, frames=4, bar_width=2)
         frames = np.concatenate([frames, frames[:, :44]], axis=1)  # 300 rows
-        cfg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
-                            pad_mode="tight", interpret_pallas=True)
+        cfg = MagnifyConfig(pad_mode="tight", use_rfft=False)
         geom = geometry_for(300, 256, "tight")
         assert geom.pad_h == 384  # 3 * 128: non-pow2
-        assert not _spatial_pallas_ok(cfg, geom, 4)
         out = np.asarray(magnify_video_spatial(frames, cfg, _rows_mesh(4)))
-        want, _ = magnify_video(
-            frames, MagnifyConfig(pad_mode="tight", use_rfft=False))
+        want, _ = magnify_video(frames, cfg)
         assert psnr(out, np.asarray(want)) > 70.0

@@ -94,91 +94,6 @@ class TestIIROracle:
         assert np.abs(iir - two).max() > 1e-3
 
 
-class TestFusedIIR:
-    """The IIR mode through the fused Pallas path (the low-pass taps ride
-    the phase/col-IFFT kernel as carry planes) — closes VERDICT r2 weak
-    #4 (IIR no longer forces the generic XLA scan)."""
-
-    XLA = MagnifyConfig(temporal=IIR)
-    FUSED = XLA.replace(fft_backend="pallas", use_rfft=False,
-                        use_fused_spectral=True, interpret_pallas=True)
-
-    def test_eligible(self):
-        from pbmm_tpu.spectral.fused import fused_eligible
-
-        assert fused_eligible(self.FUSED)
-
-    def test_matches_xla_and_oracle(self):
-        clip = oscillating_gaussian_blob(height=32, width=32, frames=10)
-        out_x, _ = magnify_video(clip, self.XLA)
-        out_f, _ = magnify_video(clip, self.FUSED)
-        assert psnr(np.asarray(out_f), np.asarray(out_x)) > 70.0
-        ref = oracle_magnify_video_iir(clip, self.XLA)
-        assert psnr(np.asarray(out_f), ref.astype(np.float32)) > 55.0
-
-    def test_chunked_state_threading(self):
-        """The lp carry crosses chunk boundaries exactly."""
-        clip = oscillating_gaussian_blob(height=32, width=32, frames=10)
-        whole, _ = magnify_video(clip, self.FUSED)
-        first, st = magnify_video(clip[:5], self.FUSED)
-        assert st.temporal.lp_fast.size > 0  # carry planes are real
-        rest, _ = magnify_video(clip[5:], self.FUSED, state=st)
-        resumed = np.concatenate([np.asarray(first), np.asarray(rest)])
-        np.testing.assert_allclose(resumed, np.asarray(whole), atol=1e-5)
-
-    def test_hermitian_iir(self):
-        """IIR + Hermitian-half kept lanes: the lp planes are kept-width
-        and the filtered delta stays Hermitian-consistent."""
-        from pbmm_tpu.oracle.synthetic import oscillating_bar
-
-        clip = oscillating_bar(size=280, frames=4, bar_width=4)
-        fused_h = self.FUSED.replace(use_hermitian_spectral=True)
-        out_h, st = magnify_video(clip, fused_h)
-        assert st.temporal.lp_fast.shape[-1] == 384  # kept width of 512
-        out_x, _ = magnify_video(clip, self.XLA)
-        assert psnr(np.asarray(out_h), np.asarray(out_x)) > 70.0
-
-    def test_standard_iir(self):
-        clip = oscillating_gaussian_blob(height=32, width=32, frames=8)
-        out_x, _ = magnify_video(clip, self.XLA.replace(mode="standard"))
-        out_f, _ = magnify_video(clip, self.FUSED.replace(mode="standard"))
-        assert psnr(np.asarray(out_f), np.asarray(out_x)) > 70.0
-
-    def test_standard_iir_chunk_kernel_hermitian(self):
-        """Standard mode + IIR + Hermitian kept lanes through the r4
-        whole-chunk IIR kernel (w(f) static plane + lp scratch) vs the
-        scan engine."""
-        from pbmm_tpu.oracle.synthetic import oscillating_bar
-
-        clip = oscillating_bar(size=280, frames=5, bar_width=4)
-        cfg = self.FUSED.replace(mode="standard",
-                                 use_hermitian_spectral=True)
-        out_h, st_h = magnify_video(clip, cfg)
-        out_s, st_s = magnify_video(clip, cfg.replace(engine="scan"))
-        assert psnr(np.asarray(out_h), np.asarray(out_s)) > 90.0
-        np.testing.assert_allclose(np.asarray(st_h.temporal.lp_fast),
-                                   np.asarray(st_s.temporal.lp_fast),
-                                   atol=1e-6)
-
-    def test_hybrid_iir_engine_equals_scan(self):
-        """The r4 hybrid IIR chunk engine (batched FFTs around a scan of
-        only the sequential phase stage) is bit-identical to the scan
-        engine, including the carried lp state across chunk boundaries."""
-        from pbmm_tpu.engine.video import _colspec_ok
-        from pbmm_tpu.oracle.synthetic import oscillating_bar
-
-        clip = oscillating_bar(size=128, frames=8, bar_width=2)
-        hyb = self.FUSED.replace(use_hermitian_spectral=True)
-        assert _colspec_ok(hyb, clip.shape)
-        out_h, st_h = magnify_video(clip, hyb)
-        out_s, st_s = magnify_video(clip, hyb.replace(engine="scan"))
-        np.testing.assert_allclose(np.asarray(out_h), np.asarray(out_s),
-                                   atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_h.temporal.lp_fast),
-                                   np.asarray(st_s.temporal.lp_fast),
-                                   atol=1e-6)
-
-
 def _tone_amplitude(sig: np.ndarray, f_hz: float, fps: float) -> float:
     """Amplitude of the `f_hz` component via complex demodulation."""
     t = np.arange(len(sig))

@@ -1,19 +1,14 @@
-"""Tight-height geometry (pad_mode="tight"): the four-step mixed-radix
-column transform and its engine integration.
+"""Tight-height geometry (pad_mode="tight") through the streaming engine.
 
 The reference pads 1080p to 2048^2 only because its radix-2 FFT needs a
 power of two (`MotionMagnificationProcessor.cs:298-302,531-535`); SURVEY
 §7.3 opens tighter geometry.  "tight" pads the height to the smallest
-multiple of 128 (1080 -> 1152 = 9*128, 0.5625x the pixels) and runs the
-column stages as a Cooley-Tukey m x 128 split inside the
-spectrum-resident chunk kernel (`spectral/fused.py::_fourstep_col`).
+multiple of 128 (1080 -> 1152 = 9*128, 0.5625x the pixels); the FFT
+library transforms the mixed-radix height directly.
 """
 
 import numpy as np
 import pytest
-
-import jax
-import jax.numpy as jnp
 
 from pbmm_tpu.config import MagnifyConfig, TemporalConfig
 from pbmm_tpu.engine.video import magnify_video
@@ -27,67 +22,13 @@ from pbmm_tpu.utils.metrics import psnr
 
 @pytest.fixture
 def clip():
-    # 300 rows -> tight pad 384 = 3*128: exercises the non-pow2 (m=3)
-    # four-step branch; width 256 stays pow2.
+    # 300 rows -> tight pad 384 = 3*128: a non-pow2 height; width 256
+    # stays pow2.
     return oscillating_bar(size=256, frames=6, bar_width=2)[:, :300]
 
 
 def _base():
-    return MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(
-        pad_mode="tight", interpret_pallas=True
-    )
-
-
-class TestFourStepTransform:
-    @pytest.mark.parametrize("h", [384, 1152])
-    def test_forward_inverse_vs_numpy(self, h):
-        from pbmm_tpu.spectral.fused import (
-            _dense_dft128,
-            _fourstep_col,
-            _fourstep_twiddle,
-            col_freq_axis,
-        )
-
-        m = h // 128
-        rng = np.random.default_rng(0)
-        x = (rng.standard_normal((h, 8)) +
-             1j * rng.standard_normal((h, 8))).astype(np.complex64)
-        X = np.fft.fft(x, axis=0)
-        p = np.arange(h)
-        k = (p // 128) + m * (p % 128)  # fourstep layout -> frequency
-        X_fs = X[k]
-
-        class R:
-            def __init__(s, a):
-                s.a = jnp.asarray(a)
-
-            def __getitem__(s, sl):
-                return s.a[sl]
-
-        twr, twi = _fourstep_twiddle(h, False)
-        dr, di = _dense_dft128(False)
-        rr, ii = _fourstep_col(
-            jnp.asarray(x.real), jnp.asarray(x.imag), h, False,
-            R(twr), R(twi), jnp.asarray(dr), jnp.asarray(di)
-        )
-        got = np.asarray(rr) + 1j * np.asarray(ii)
-        rel = np.max(np.abs(got - X_fs)) / np.max(np.abs(X_fs))
-        assert rel < 1e-4
-
-        twr_i, twi_i = _fourstep_twiddle(h, True)
-        dri, dii = _dense_dft128(True)
-        br, bi = _fourstep_col(
-            jnp.asarray(X_fs.real), jnp.asarray(X_fs.imag), h, True,
-            R(twr_i), R(twi_i), jnp.asarray(dri), jnp.asarray(dii)
-        )
-        back = (np.asarray(br) + 1j * np.asarray(bi)) / h
-        rel = np.max(np.abs(back - x)) / np.max(np.abs(x))
-        assert rel < 1e-4
-
-        fa = col_freq_axis(h)
-        v = k / h
-        want = np.where(v < 0.5, v, v - 1.0)
-        np.testing.assert_allclose(fa, want, atol=1e-6)
+    return MagnifyConfig(phase_scale=10.0, pad_mode="tight")
 
 
 class TestTightEngine:
@@ -138,11 +79,6 @@ class TestTightEngine:
             pad_mode="tight", chroma="rgb")
         ref, _ = magnify_video(clip, cfg_x)
         assert psnr(np.asarray(out), np.asarray(ref)) > 60
-
-    def test_scan_engine_tight_pallas_raises(self, clip):
-        cfg = _base().replace(engine="scan")
-        with pytest.raises(ValueError, match="tight"):
-            magnify_video(clip, cfg)
 
     def test_tight_mxu_backend_rejected(self):
         with pytest.raises(ValueError, match="tight"):
